@@ -1,0 +1,77 @@
+"""WirePath — which wire plane moves at the fan-in and which lowering
+of it runs.
+
+The port carries the packed plane only (``plane="packed"``: sign, hi
+and code uint32 planes, DESIGN.md §9).  The dense and signplane planes,
+cohort streaming, AP clusters, per-layer budgets and the plane checksum
+are not ported yet and raise :class:`NotImplementedError`.
+
+``lowering``:
+
+* ``"auto"`` — by the tensor's device: the CUDA kernels for a CUDA
+  tensor, the plain PyTorch versions (``kernels/ref.py``) for a CPU
+  tensor;
+* ``"kernel"`` — the CUDA kernels; a CPU tensor raises;
+* ``"reference"`` — the plain versions on any device.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+PLANES = ("dense", "signplane", "packed")
+LOWERINGS = ("auto", "kernel", "reference")
+
+# The packed wire format counts high-res entries (dbar) and folds the
+# weighted dequant in f32 accumulators: exact only while every integer
+# involved stays below 2**24 (f32 mantissa).
+PACKED_DIM_LIMIT = 2 ** 24
+
+
+def check_packed_dim(d: int, *, where: str = "the packed wire plane"
+                     ) -> None:
+    """Raise unless ``d`` is exactly countable in the f32 wire headers."""
+    if d >= PACKED_DIM_LIMIT:
+        raise ValueError(
+            f"{where} requires d < 2**24 (got d={d}): the dbar count and "
+            "weighted dequant accumulate in f32, which is exact only below "
+            "2**24.")
+
+
+@dataclasses.dataclass(frozen=True)
+class WirePath:
+    """One wire-path spec (the packed plane; see the module docstring)."""
+    plane: str = "packed"
+    lowering: str = "auto"
+    cohort_size: Optional[int] = None
+    clusters: int = 1
+    budget: Optional[object] = None
+    checksum: bool = False
+
+    def __post_init__(self):
+        if self.plane not in PLANES:
+            raise ValueError(f"unknown wire plane {self.plane!r}; "
+                             f"have {PLANES}")
+        if self.lowering not in LOWERINGS:
+            raise ValueError(f"unknown wire lowering {self.lowering!r}; "
+                             f"have {LOWERINGS}")
+        if self.plane != "packed":
+            raise NotImplementedError(
+                f"the {self.plane!r} wire plane is not ported to "
+                "repro_torch yet; use plane='packed'")
+        for field, off in (("cohort_size", None), ("clusters", 1),
+                           ("budget", None), ("checksum", False)):
+            if getattr(self, field) != off:
+                raise NotImplementedError(
+                    f"WirePath.{field} is not ported to repro_torch yet")
+
+    def use_kernel(self, t: torch.Tensor) -> bool:
+        """True when the op on tensor ``t`` runs the CUDA kernels."""
+        if self.lowering == "reference":
+            return False
+        if self.lowering == "kernel" and t.device.type != "cuda":
+            raise ValueError("lowering='kernel' needs CUDA tensors, got "
+                             f"a tensor on {t.device}")
+        return t.device.type == "cuda"

@@ -1,0 +1,19 @@
+"""repro_torch.sim — the vectorized FL-over-CFmMIMO engine on its main
+path (fused step, packed wire plane), the scenario registry entries it
+runs, round-log metrics and the single-cell runner."""
+from repro_torch.kernels import WirePath
+
+from .engine import (EngineConfig, RoundWork, RunState, UplinkSolution,
+                     VectorizedFLEngine, straggler_gap)
+from .metrics import summarize_logs
+from .scenarios import (SCENARIOS, Scenario, build_problem, get_scenario,
+                        list_scenarios, register_scenario)
+from .sweep import SweepCell, SweepResult, make_engine, run_cell
+
+__all__ = [
+    "EngineConfig", "RoundWork", "RunState", "SCENARIOS", "Scenario",
+    "SweepCell", "SweepResult", "UplinkSolution", "VectorizedFLEngine",
+    "WirePath", "build_problem", "get_scenario", "list_scenarios",
+    "make_engine", "register_scenario", "run_cell", "straggler_gap",
+    "summarize_logs",
+]

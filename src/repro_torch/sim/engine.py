@@ -1,0 +1,279 @@
+"""Vectorized FL-over-CFmMIMO engine — all K users in one step per round.
+
+The port of ``repro.sim.engine.VectorizedFLEngine`` on its main path:
+the fused step on the packed wire plane
+(``EngineConfig(wire=WirePath(plane="packed"), fused=True)``).  One
+round:
+
+1. the K users' minibatches are drawn on the host (numpy, the JAX
+   engine's stream and draw order) and their L local AdaGrad steps run
+   as one ``torch.func.vmap`` over the users — cuDNN/cuBLAS on the card;
+2. the stacked ``[K, d]`` deltas are encoded to packed planes (K1, the
+   scalar epilogue, K2) and decoded into one rho-weighted update (K3),
+   which the params take in place of the dense reconstructions;
+3. the host solves power control and accounts latency
+   (:meth:`solve_uplink_host`, :meth:`finish_round`).
+
+Modes of the JAX engine that are not ported raise
+:class:`NotImplementedError`: the exact mode (``fused=False``), the
+dense and signplane planes and cohorts, clusters, budgets and the
+checksum (all on :class:`WirePath`), churn (``participation < 1``),
+channel redraws, async rounds, the mesh, resilience and the replicate
+axis.  The port has no observability taps.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, NamedTuple, Optional
+
+import numpy as np
+import torch
+from torch.func import vmap
+
+from repro_torch.core.channel import ChannelRealization, computation_latency
+from repro_torch.core.power.base import PowerController
+from repro_torch.core.quantize import Quantizer
+from repro_torch.core.quantize.base import flatten_pytree, unflatten_pytree
+from repro_torch.data.federated import user_fractions, validate_shards
+from repro_torch.data.synthetic import ImageDataset
+from repro_torch.device import resolve_device
+from repro_torch.kernels import WirePath, check_packed_dim
+from repro_torch.kernels.ops import mixed_res_wire_aggregate
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """Engine knobs.  Only the fused packed-plane step is ported, and it
+    is the default here (the JAX engine defaults to the exact mode);
+    every other value raises :class:`NotImplementedError`."""
+    wire: WirePath = dataclasses.field(default_factory=WirePath)
+    fused: bool = True
+    participation: float = 1.0
+    redraw_channel_every: int = 0
+    async_mode: bool = False
+    mesh: Optional[object] = None
+    resilience: Optional[object] = None
+
+    def __post_init__(self):
+        if not self.fused:
+            raise NotImplementedError(
+                "the exact mode (fused=False) is not ported to repro_torch "
+                "yet; use fused=True")
+        unported = {"participation": (self.participation, 1.0),
+                    "redraw_channel_every": (self.redraw_channel_every, 0),
+                    "async_mode": (self.async_mode, False),
+                    "mesh": (self.mesh, None),
+                    "resilience": (self.resilience, None)}
+        for name, (value, off) in unported.items():
+            if value != off:
+                raise NotImplementedError(
+                    f"EngineConfig.{name}={value!r} is not ported to "
+                    "repro_torch yet")
+
+
+class UplinkSolution(NamedTuple):
+    """Structured result of the uplink power solve (stage 3)."""
+    straggler_s: float
+    latencies: np.ndarray
+
+
+@dataclasses.dataclass
+class RoundWork:
+    """What one training round hands to the power-control stage."""
+    t: int
+    bits_np: np.ndarray            # [K] payload bits
+    active: np.ndarray             # [K] 0/1 participation mask
+    mean_s: float                  # mean high-res fraction
+
+
+@dataclasses.dataclass
+class RunState:
+    """Mutable per-run state for the round-stepping API."""
+    params: dict
+    chan: Optional[ChannelRealization]
+    rng: np.random.Generator
+    test_x: torch.Tensor
+    test_y: torch.Tensor
+    logs: List
+    cum_latency: float = 0.0
+    rounds_done: int = 0
+
+
+def straggler_gap(per_user_s: np.ndarray, mask: np.ndarray) -> float:
+    """Slowest-minus-median upload completion time over ``mask`` users."""
+    lat = np.asarray(per_user_s, np.float64)[np.asarray(mask) > 0]
+    if lat.size == 0:
+        return 0.0
+    return float(np.max(lat) - np.median(lat))
+
+
+class VectorizedFLEngine:
+    """Algorithm 1 with all K users vectorized into one step per round.
+
+    ``device`` defaults to the card (``repro_torch.device``);
+    ``init_params`` (a params dict, e.g. from
+    :func:`repro_torch.fl.cnn.params_from_jax`) replaces the model's own
+    init, so a run can start from the JAX package's weights."""
+
+    def __init__(self, dataset: ImageDataset, test: ImageDataset,
+                 shards: List[np.ndarray], model,
+                 quantizer: Quantizer, power: Optional[PowerController],
+                 chan: Optional[ChannelRealization], fl,
+                 engine: Optional[EngineConfig] = None, *,
+                 device=None, init_params=None):
+        from repro_torch.fl.models import as_model_spec
+
+        self.device = resolve_device(device)
+        self.model_spec = as_model_spec(model)
+        self.engine_cfg = engine or EngineConfig()
+        self.wire_path_spec = self.engine_cfg.wire
+        if quantizer.name != "mixed-resolution":
+            raise ValueError(
+                "the packed wire plane packs the mixed-resolution wire "
+                f"format; quantizer {quantizer.name!r} has none")
+        if quantizer.b > 16:
+            raise ValueError(
+                "the wire kernels store magnitude codes in <= 16 bits; "
+                f"got b={quantizer.b}")
+        self.dataset, self.test = dataset, test
+        self.shards = shards
+        self.quantizer, self.power, self.chan, self.fl = \
+            quantizer, power, chan, fl
+        self.K = len(shards)
+        validate_shards(shards)
+        # uniform minibatch size so user batches stack to [K, L, b]
+        self.take = min(fl.batch_size, min(len(s) for s in shards))
+        self.rho = user_fractions(shards)
+        self._weights = torch.tensor(self.rho, dtype=torch.float32,
+                                     device=self.device)
+
+        if init_params is None:
+            gen = torch.Generator().manual_seed(fl.seed)
+            init_params = self.model_spec.init(gen)
+        self.params = {k: v.detach().to(self.device, torch.float32)
+                       for k, v in init_params.items()}
+        flat0, self.spec = flatten_pytree(self.params)
+        self.d = int(flat0.numel())
+        check_packed_dim(self.d, where="the packed wire plane")
+        self.comp_lat = computation_latency(fl.L, fl.dataset_size_for_comp,
+                                            self.K)
+        # the datasets live on the device for the whole run; each round
+        # gathers its minibatches there from host-drawn indices
+        self._train_x = torch.as_tensor(dataset.x, device=self.device)
+        self._train_y = torch.as_tensor(dataset.y, device=self.device)
+
+    # ------------------------------------------------------------ step
+    def _batched_local(self, params, xs, ys) -> torch.Tensor:
+        """All stacked users' local AdaGrad runs -> [K, d] deltas, in
+        ``flatten_pytree``'s leaf order."""
+        from repro_torch.fl.loop import local_adagrad
+
+        fl, loss = self.fl, self.model_spec.loss
+        local = vmap(lambda x, y: local_adagrad(params, x, y, fl.L,
+                                                fl.alpha, loss))(xs, ys)
+        K = xs.shape[0]
+        return torch.cat([(local[k] - params[k]).reshape(K, -1)
+                          for k in sorted(params)], dim=1)
+
+    def _fused_step(self, params, xs, ys):
+        q = self.quantizer
+        flat = self._batched_local(params, xs, ys)
+        agg, bits, aux = mixed_res_wire_aggregate(
+            flat, self._weights, q.lambda_, q.b, path=self.wire_path_spec)
+        upd = unflatten_pytree(agg, self.spec)
+        return {k: params[k] + upd[k] for k in params}, bits, aux
+
+    # ----------------------------------------------- round-stepping API
+    def start_run(self) -> RunState:
+        return RunState(
+            params={k: v.clone() for k, v in self.params.items()},
+            chan=self.chan,
+            rng=np.random.default_rng(self.fl.seed),
+            test_x=torch.as_tensor(self.test.x, device=self.device),
+            test_y=torch.as_tensor(self.test.y, device=self.device),
+            logs=[])
+
+    def draw_minibatches(self, state: RunState):
+        """The round's [K, L, b, ...] minibatches from ``state.rng``, in
+        the JAX engine's nested draw order, gathered on the device."""
+        sel = np.stack([
+            np.stack([state.rng.choice(shard, self.take, replace=False)
+                      for _ in range(self.fl.L)])
+            for shard in self.shards])               # [K, L, b]
+        idx = torch.as_tensor(sel, device=self.device)
+        return self._train_x[idx], self._train_y[idx]
+
+    def train_round(self, state: RunState, t: int) -> RoundWork:
+        """Stages 1-2: minibatch draw, local training, encode and fused
+        reduce, param update.  Updates ``state`` in place."""
+        xs, ys = self.draw_minibatches(state)
+        with torch.no_grad():
+            state.params, bits, aux = self._fused_step(state.params, xs, ys)
+        return RoundWork(t=t, bits_np=bits.double().cpu().numpy(),
+                         active=np.ones(self.K),
+                         mean_s=float(aux["s"].double().mean()))
+
+    def solve_uplink_host(self, chan: Optional[ChannelRealization],
+                          bits_np: np.ndarray, active: np.ndarray
+                          ) -> UplinkSolution:
+        """Stage 3: the host power solve (numpy + scipy)."""
+        per_user = np.zeros(self.K)
+        if self.power is None or chan is None:
+            return UplinkSolution(0.0, per_user)
+        sol = self.power.solve(chan, np.maximum(bits_np, 1.0))
+        per_user = np.asarray(sol.latencies, np.float64)
+        return UplinkSolution(sol.straggler_latency, per_user)
+
+    def eval_due(self, t: int) -> bool:
+        return t % self.fl.eval_every == 0 or t == self.fl.T
+
+    def budget_spent(self, cum_latency: float) -> bool:
+        return (self.fl.latency_budget_s is not None
+                and cum_latency >= self.fl.latency_budget_s)
+
+    def finish_round(self, state: RunState, work: RoundWork,
+                     uplink: float, verbose: bool = False,
+                     per_user_s: Optional[np.ndarray] = None) -> bool:
+        """Stage 4: latency accounting, eval, logging.  Returns False
+        once the latency budget is exhausted (stop stepping)."""
+        from repro_torch.fl.loop import RoundLog
+
+        t = work.t
+        gap = 0.0 if per_user_s is None \
+            else straggler_gap(per_user_s, work.active)
+        state.cum_latency += uplink + self.comp_lat
+        acc = None
+        if self.eval_due(t):
+            acc = self.model_spec.accuracy(state.params, state.test_x,
+                                           state.test_y)
+        state.logs.append(RoundLog(
+            t, work.bits_np, uplink, self.comp_lat, state.cum_latency,
+            work.mean_s, acc, straggler_gap_s=gap,
+            effective_participation=float(np.sum(work.active > 0)) / self.K))
+        state.rounds_done = t
+        if verbose and acc is not None:
+            print(f"[round {t:4d}] acc={acc:.4f} "
+                  f"bits/user={work.bits_np.mean():.3e} "
+                  f"cum_lat={state.cum_latency:.2f}s")
+        return not self.budget_spent(state.cum_latency)
+
+    def result(self, state: RunState):
+        from repro_torch.fl.loop import FLResult
+        return FLResult(params=state.params, logs=state.logs,
+                        rounds_completed=state.rounds_done)
+
+    def run(self, verbose: bool = False):
+        state = self.start_run()
+        for t in range(1, self.fl.T + 1):
+            work = self.train_round(state, t)
+            uplink, per_user = self.solve_uplink_host(
+                state.chan, work.bits_np, work.active)
+            if not self.finish_round(state, work, uplink, verbose=verbose,
+                                     per_user_s=per_user):
+                break
+        return self.result(state)
+
+    # ------------------------------------------- modes not ported yet
+    def start_replicated_run(self, R: int):
+        raise NotImplementedError(
+            "the Monte-Carlo replicate axis is not ported to repro_torch yet")
