@@ -8,7 +8,8 @@ scipy only — never jax and never ``repro``.
 Entry points run on ``cuda`` by default and raise when no card is
 present unless the caller passes ``device="cpu"`` (see
 :func:`repro_torch.device.resolve_device`).  On a CUDA tensor the
-mixed-resolution wire ops launch the hand-written kernels in
-``kernels/csrc/mixed_res.cu``; on a CPU tensor they run the plain
-PyTorch versions in ``kernels/ref.py``.
+wire ops launch the hand-written kernels in ``kernels/csrc/``
+(``mixed_res.cu`` for the packed plane, ``quant_pack.cu`` for the
+sign plane); on a CPU tensor they run the plain PyTorch versions in
+``kernels/ref.py``.
 """

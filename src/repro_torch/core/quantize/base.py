@@ -11,6 +11,8 @@ import dataclasses
 from typing import Any, Dict, Iterator, List, Tuple
 
 import torch
+from torch.func import vmap
+from torch.utils._pytree import tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,6 +40,35 @@ class Quantizer:
     def __call__(self, delta: torch.Tensor, state: Any = None
                  ) -> Tuple[QuantResult, Any]:
         raise NotImplementedError
+
+    # ------------------------------------------------ batched entry point
+    def init_batched_state(self, K: int, dim: int) -> Any:
+        """Stacked per-user state with a leading K axis (None when
+        stateless).  The default replicates init_state(dim) K times."""
+        state = self.init_state(dim)
+        if state is None:
+            return None
+        return tree_map(lambda x: x[None].expand((K,) + tuple(x.shape)),
+                        state)
+
+    def batched(self, deltas: torch.Tensor, states: Any = None
+                ) -> Tuple[QuantResult, Any]:
+        """Quantize K stacked delta vectors in one vmapped call.
+
+        ``deltas``: [K, d]; ``states``: output of init_batched_state (or
+        None).  Returns a QuantResult with leading-K fields plus the
+        updated stacked state.  Each row is reduced on its own, so the
+        results match __call__ row for row bit for bit."""
+        def one(x, s):
+            res, new = self(x, s)
+            return (res.recon, res.bits, res.aux), new
+
+        if states is None:
+            recon, bits, aux = vmap(lambda x: one(x, None)[0])(deltas)
+            new_states = None
+        else:
+            (recon, bits, aux), new_states = vmap(one)(deltas, states)
+        return QuantResult(recon=recon, bits=bits, aux=aux), new_states
 
 
 def _leaves(tree) -> List[torch.Tensor]:

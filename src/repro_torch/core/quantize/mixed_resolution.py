@@ -13,10 +13,11 @@ Element-wise two-category quantization of a local gradient vector
 Total payload: ``b_t = d (b s + 1 - s) + 32`` bits with ``s = dbar / d``
 the high-resolution fraction.
 
-This module is the eager golden reference, op for op the same
-arithmetic as ``repro.core.quantize.mixed_resolution``.  The production
-path is the packed wire encode (``repro_torch.kernels.ops``), which
-never materializes the dense ``recon``.
+This module is op for op the same arithmetic as
+``repro.core.quantize.mixed_resolution``.  It runs per user under
+``torch.func.vmap`` (:meth:`Quantizer.batched`) on the dense and
+signplane wire planes; the packed plane's encode
+(``repro_torch.kernels.ops``) never materializes the dense ``recon``.
 """
 from __future__ import annotations
 
@@ -42,11 +43,12 @@ def lemma1_bound(lambda_: float, b: int) -> float:
 
 def mixed_resolution_quantize(delta: torch.Tensor, lambda_: float, b: int
                               ) -> QuantResult:
-    """Quantize one flat vector.
+    """Quantize one flat vector; batchable under ``torch.func.vmap``.
 
     ``lambda_`` is rounded to float32 before the threshold compare, as
     JAX does implicitly: a compare in double flips elements that sit on
-    the threshold."""
+    the threshold.  Every division is IEEE on CUDA too: tensor by
+    tensor, or :func:`true_div`; ``dw_q / 2.0`` is exact either way."""
     x = delta.to(torch.float32)
     d = x.numel()
     lam = float(np.float32(lambda_))

@@ -20,14 +20,14 @@ Each counts its kernel launches in :data:`LAUNCHES`.
 """
 from __future__ import annotations
 
-import ctypes
 import functools
-from typing import Dict, Optional
+from typing import Optional
 
 import numpy as np
 import torch
 
-from . import build as _build
+from . import launch as _l
+from .launch import LAUNCHES
 
 # wire-header lanes ([U, 8] f32 scalar rows); lanes 5-7 stay zero (the
 # JAX package's checksum lane H_CHK = 5 is not ported)
@@ -35,15 +35,6 @@ H_INF, H_DWQ, H_STEP, H_DBAR, H_LAM = 0, 1, 2, 3, 4
 HEADER_LANES = 8
 
 CODE_STORE_WIDTHS = (2, 4, 8, 16)
-
-# CUDA launches per kernel (K1 is two launches: max, then threshold)
-LAUNCHES: Dict[str, int] = {"mixed_res_reduce": 0, "mixed_res_emit": 0,
-                            "mixed_res_dequant_reduce": 0}
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def code_width(b: int) -> int:
@@ -60,62 +51,26 @@ def code_words_per_row(b: int) -> int:
 
 
 # ------------------------------------------------------------ loading
-_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
-    ctypes.c_float
+_SIGNATURES = (
+    ("mr_reduce", (_l.P, _l.P, _l.I, _l.LL, _l.LL, _l.F, _l.P)),
+    ("mr_emit", (_l.P, _l.P, _l.P, _l.P, _l.P, _l.I, _l.LL, _l.LL, _l.I,
+                 _l.I, _l.P)),
+    ("mr_dequant_reduce", (_l.P, _l.P, _l.P, _l.P, _l.P, _l.P, _l.P, _l.I,
+                           _l.LL, _l.I, _l.P)),
+)
 
 
-@functools.lru_cache(maxsize=None)
 def _library():
-    info = _build.build("mixed_res.cu")
-    lib = ctypes.CDLL(str(info.path))
-    lib.mr_reduce.argtypes = [_P, _P, _I, _LL, _LL, _F, _P]
-    lib.mr_emit.argtypes = [_P, _P, _P, _P, _P, _I, _LL, _LL, _I, _I, _P]
-    lib.mr_dequant_reduce.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _LL,
-                                      _I, _P]
-    for fn in (lib.mr_reduce, lib.mr_emit, lib.mr_dequant_reduce):
-        fn.restype = ctypes.c_int
-    lib.mr_error_string.argtypes = [ctypes.c_int]
-    lib.mr_error_string.restype = ctypes.c_char_p
-    return lib, info
+    return _l.library("mixed_res.cu", "mr_error_string", _SIGNATURES)
 
 
-def build_info() -> _build.BuildInfo:
+def build_info():
     """Build (at first use) and load the kernels; the build record."""
     return _library()[1]
 
 
 def _launch(name: str, *args) -> None:
-    lib, _ = _library()
-    err = getattr(lib, name)(*args)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: "
-                           f"{lib.mr_error_string(err).decode()}")
-
-
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
-
-
-def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _on_cuda(t: torch.Tensor) -> bool:
-    """False for a CPU tensor (the plain version runs); True for a CUDA
-    tensor (the kernel runs); any other device raises."""
-    if t.device.type == "cpu":
-        return False
-    if t.device.type != "cuda":
-        raise ValueError(f"no mixed-res kernel for device {t.device}")
-    return True
+    _l.launch(_library(), name, *args)
 
 
 def _check_rows(x: torch.Tensor, d_valid: int):
@@ -138,17 +93,17 @@ def mixed_res_reduce(x: torch.Tensor, lam: float, d_valid: int
     raw — ``+inf`` when no element clears the threshold — and H_DBAR);
     ``d_valid`` is the unpadded length."""
     U, W = _check_rows(x, d_valid)
-    if not _on_cuda(x):
+    if not _l.on_cuda(x):
         from .ref import mixed_res_reduce_ref
         return mixed_res_reduce_ref(x, lam, d_valid)
-    _check(x, "x", torch.float32, (U, W, 128), x.device)
+    _l.check(x, "x", torch.float32, (U, W, 128), x.device)
     if x.data_ptr() % 16:
         raise ValueError("x must be 16-byte aligned (K1 loads float4)")
     head = torch.zeros((U, HEADER_LANES), dtype=torch.float32,
                        device=x.device)
     with torch.cuda.device(x.device):
         _launch("mr_reduce", x.data_ptr(), head.data_ptr(), U, W,
-                int(d_valid), float(np.float32(lam)), _stream())
+                int(d_valid), float(np.float32(lam)), _l.stream())
     LAUNCHES["mixed_res_reduce"] += 2
     return head
 
@@ -160,11 +115,11 @@ def mixed_res_emit(x: torch.Tensor, head: torch.Tensor, b: int,
     paper's threshold rule (lane H_LAM), ``anchored=True`` the
     static-budget rule ``|x| >= dw_q``."""
     U, W = _check_rows(x, d_valid)
-    if not _on_cuda(x):
+    if not _l.on_cuda(x):
         from .ref import mixed_res_emit_ref
         return mixed_res_emit_ref(x, head, b, d_valid, anchored=anchored)
-    _check(x, "x", torch.float32, (U, W, 128), x.device)
-    _check(head, "head", torch.float32, (U, HEADER_LANES), x.device)
+    _l.check(x, "x", torch.float32, (U, W, 128), x.device)
+    _l.check(head, "head", torch.float32, (U, HEADER_LANES), x.device)
     new = functools.partial(torch.empty, dtype=torch.uint32,
                             device=x.device)
     signs, hi, codes = new((U, W, 4)), new((U, W, 4)), \
@@ -172,7 +127,7 @@ def mixed_res_emit(x: torch.Tensor, head: torch.Tensor, b: int,
     with torch.cuda.device(x.device):
         _launch("mr_emit", x.data_ptr(), head.data_ptr(), signs.data_ptr(),
                 hi.data_ptr(), codes.data_ptr(), U, W, int(d_valid), b,
-                int(anchored), _stream())
+                int(anchored), _l.stream())
     LAUNCHES["mixed_res_emit"] += 1
     return signs, hi, codes
 
@@ -189,23 +144,24 @@ def mixed_res_dequant_reduce(signs: torch.Tensor, hi: torch.Tensor,
         raise ValueError(f"signs must be [G>=1, W, 4], got "
                          f"{tuple(signs.shape)}")
     G, W, _ = signs.shape
-    if not _on_cuda(signs):
+    if not _l.on_cuda(signs):
         from .ref import mixed_res_dequant_reduce_ref
         return mixed_res_dequant_reduce_ref(signs, hi, codes, head,
                                             weights, b, acc=acc)
     dev = signs.device
-    _check(signs, "signs", torch.uint32, (G, W, 4), dev)
-    _check(hi, "hi", torch.uint32, (G, W, 4), dev)
-    _check(codes, "codes", torch.uint32, (G, W, code_words_per_row(b)), dev)
-    _check(head, "head", torch.float32, (G, HEADER_LANES), dev)
-    _check(weights, "weights", torch.float32, (G,), dev)
+    _l.check(signs, "signs", torch.uint32, (G, W, 4), dev)
+    _l.check(hi, "hi", torch.uint32, (G, W, 4), dev)
+    _l.check(codes, "codes", torch.uint32, (G, W, code_words_per_row(b)),
+             dev)
+    _l.check(head, "head", torch.float32, (G, HEADER_LANES), dev)
+    _l.check(weights, "weights", torch.float32, (G,), dev)
     if acc is not None:
-        _check(acc, "acc", torch.float32, (W, 128), dev)
+        _l.check(acc, "acc", torch.float32, (W, 128), dev)
     out = torch.empty((W, 128), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         _launch("mr_dequant_reduce", signs.data_ptr(), hi.data_ptr(),
                 codes.data_ptr(), head.data_ptr(), weights.data_ptr(),
                 None if acc is None else acc.data_ptr(), out.data_ptr(),
-                G, W, b, _stream())
+                G, W, b, _l.stream())
     LAUNCHES["mixed_res_dequant_reduce"] += 1
     return out

@@ -1,10 +1,15 @@
-"""The packed wire path built on K1–K3: layout, encode, fused reduce.
+"""The wire paths built on K1–K5: layout, encode, fused reduce.
 
-``mixed_res_encode`` turns U stacked deltas into packed planes in two
-passes (K1, a scalar epilogue, K2); ``mixed_res_wire_reduce`` decodes
-and weights all users' planes in one pass (K3).  Neither materializes
-a dense per-user reconstruction.  Which lowering runs is the
-:class:`WirePath`'s ``lowering``, resolved by the tensor's device.
+Packed plane: ``mixed_res_encode`` turns U stacked deltas into packed
+planes in two passes (K1, a scalar epilogue, K2);
+``mixed_res_wire_reduce`` decodes and weights all users' planes in one
+pass (K3).  Neither materializes a dense per-user reconstruction.
+
+Sign plane: ``packed_sign_weighted_sum`` packs G sign planes in one K4
+launch and reduces them with per-peer scales in one K5 launch.
+
+Which lowering runs is the :class:`WirePath`'s ``lowering``, resolved
+by the tensor's device.
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ from . import ref as _ref
 from .mixed_res import (H_DBAR, H_DWQ, H_INF, H_LAM, H_STEP,
                         mixed_res_dequant_reduce, mixed_res_emit,
                         mixed_res_reduce)
+from .quant_pack import sign_dequant_reduce, signpack
 from .wire import WirePath, check_packed_dim
 
 
@@ -38,6 +44,50 @@ def sign_pad_len(d: int) -> int:
     if rows > 256 and rows % 256:
         rows = -(-rows // 256) * 256
     return rows * 128
+
+
+def signpack_op(x: torch.Tensor, *, path: Optional[WirePath] = None
+                ) -> torch.Tensor:
+    """Pack the sign plane of a flat f32 vector.
+
+    x: [d] f32 with d % 128 == 0  ->  [d/32] uint32 (viewed flat)."""
+    path = path or WirePath()
+    rows = x.to(torch.float32).reshape(-1, 128).contiguous()
+    words = signpack(rows) if path.use_kernel(rows) \
+        else _ref.signpack_ref(rows)
+    return words.reshape(-1)
+
+
+def sign_dequant_reduce_op(words: torch.Tensor, scales: torch.Tensor, *,
+                           path: Optional[WirePath] = None
+                           ) -> torch.Tensor:
+    """words: [G, d/32] u32, scales: [G] -> [d] f32 weighted sign sum."""
+    path = path or WirePath()
+    G = words.shape[0]
+    w3 = words.reshape(G, -1, 4).contiguous()
+    s = scales.to(device=words.device, dtype=torch.float32).contiguous()
+    out = sign_dequant_reduce(w3, s) if path.use_kernel(w3) \
+        else _ref.sign_dequant_reduce_ref(w3, s)
+    return out.reshape(-1)
+
+
+def packed_sign_weighted_sum(flat: torch.Tensor, scales: torch.Tensor, *,
+                             path: Optional[WirePath] = None
+                             ) -> torch.Tensor:
+    """flat: [G, d] f32, scales: [G] f32 -> [d] f32 equal to
+    ``sum_g scales_g * sign(flat_g)`` with sign(x) = +1 iff x > 0.
+
+    Routes through the packed wire format: the G sign planes, padded
+    to :func:`sign_pad_len`, are stacked into ONE K4 launch over
+    ``[G*rows, 128]``, and one K5 launch unpacks and reduces them."""
+    path = path or WirePath()
+    G, d = flat.shape
+    rows = sign_pad_len(d) // 128
+    words = signpack_op(wire_view(flat.to(torch.float32)).reshape(-1),
+                        path=path)
+    out = sign_dequant_reduce_op(words.reshape(G, rows * 4), scales,
+                                 path=path)
+    return out[:d]
 
 
 class MixedResWire(NamedTuple):

@@ -1,8 +1,9 @@
-"""Plain PyTorch versions of the mixed-resolution wire kernels K1–K3.
+"""Plain PyTorch versions of the wire kernels K1–K5.
 
 Each function computes what its CUDA kernel in ``csrc/mixed_res.cu``
-computes, with the same arithmetic as the jnp oracles in
-``repro/kernels/ref.py``: the CPU path of the port, the reference the
+(K1–K3) or ``csrc/quant_pack.cu`` (K4–K5) computes, with the same
+arithmetic as the jnp oracles in ``repro/kernels/ref.py`` (K5 in a
+fixed fold order): the CPU path of the port, the reference the
 kernels are held to on the card, and the twin the parity tests hold
 against the JAX package.
 
@@ -56,6 +57,33 @@ def _unpack(words: torch.Tensor, width: int) -> torch.Tensor:
     shifts = torch.arange(per, device=words.device, dtype=torch.int64) * width
     vals = (from_u32(words)[..., None] >> shifts) & ((1 << width) - 1)
     return vals.reshape(*words.shape[:-1], -1)
+
+
+def signpack_ref(x: torch.Tensor) -> torch.Tensor:
+    """K4.  x: [N, 128] f32 -> words [N, 4] uint32; bit j of word c is
+    ``x[:, 32c + j] > 0`` (0 for -0.0, +0.0 and NaN; 1 for a positive
+    subnormal, which XLA on the CPU flushes to 0)."""
+    return _pack((x > 0).to(torch.int64), 1)
+
+
+def sign_dequant_reduce_ref(words: torch.Tensor, scales: torch.Tensor
+                            ) -> torch.Tensor:
+    """K5.  words: [G, W, 4] uint32, scales: [G] f32 -> [W, 128] f32
+    ``sum_g (bit ? scale_g : -scale_g)``.
+
+    The peers fold left to right, ``((u_0 + u_1) + u_2) + ...``, not in
+    one einsum: the CUDA kernel folds in the same order, so the two
+    agree bit for bit."""
+    G, W, _ = words.shape
+
+    def one(g):
+        bit = _unpack(words[g], 1).reshape(W, 128) > 0
+        return torch.where(bit, scales[g], -scales[g])
+
+    out = one(0)
+    for g in range(1, G):
+        out = out + one(g)
+    return out
 
 
 def mixed_res_reduce_ref(x: torch.Tensor, lam: float, d_valid: int

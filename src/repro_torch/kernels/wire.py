@@ -1,10 +1,19 @@
 """WirePath — which wire plane moves at the fan-in and which lowering
 of it runs.
 
-The port carries the packed plane only (``plane="packed"``: sign, hi
-and code uint32 planes, DESIGN.md §9).  The dense and signplane planes,
-cohort streaming, AP clusters, per-layer budgets and the plane checksum
-are not ported yet and raise :class:`NotImplementedError`.
+Planes (``plane``):
+
+* ``"packed"`` — the full mixed-resolution wire format: sign, hi and
+  code uint32 planes (DESIGN.md §9), encoded by K1–K2 and reduced by
+  K3 without a dense reconstruction;
+* ``"signplane"`` — the dense reconstruction's 1-bit sign plane packed
+  by K4 and reduced by K5 with per-user scales ``w_g * dw_q_g / 2``,
+  plus a dense weighted correction on the high-resolution support;
+* ``"dense"`` — the dense reconstructions reduced by one weighted sum.
+
+Cohort streaming, AP clusters, per-layer budgets and the plane
+checksum are not ported yet and raise :class:`NotImplementedError` on
+every plane.
 
 ``lowering``:
 
@@ -42,7 +51,7 @@ def check_packed_dim(d: int, *, where: str = "the packed wire plane"
 
 @dataclasses.dataclass(frozen=True)
 class WirePath:
-    """One wire-path spec (the packed plane; see the module docstring)."""
+    """One wire-path spec (see the module docstring)."""
     plane: str = "packed"
     lowering: str = "auto"
     cohort_size: Optional[int] = None
@@ -57,10 +66,15 @@ class WirePath:
         if self.lowering not in LOWERINGS:
             raise ValueError(f"unknown wire lowering {self.lowering!r}; "
                              f"have {LOWERINGS}")
-        if self.plane != "packed":
-            raise NotImplementedError(
-                f"the {self.plane!r} wire plane is not ported to "
-                "repro_torch yet; use plane='packed'")
+        # the JAX spec's plane rules, before the unported knobs
+        if self.cohort_size is not None and self.plane != "packed":
+            raise ValueError(
+                "cohort streaming folds packed wire planes; use "
+                f"plane='packed' (got plane={self.plane!r})")
+        if self.checksum and self.plane != "packed":
+            raise ValueError(
+                "checksum folds the packed uint32 wire planes; use "
+                f"plane='packed' (got plane={self.plane!r})")
         for field, off in (("cohort_size", None), ("clusters", 1),
                            ("budget", None), ("checksum", False)):
             if getattr(self, field) != off:
@@ -68,7 +82,8 @@ class WirePath:
                     f"WirePath.{field} is not ported to repro_torch yet")
 
     def use_kernel(self, t: torch.Tensor) -> bool:
-        """True when the op on tensor ``t`` runs the CUDA kernels."""
+        """True when the op on tensor ``t`` runs the CUDA kernels (K1–K3
+        on the packed plane, K4–K5 on the signplane plane)."""
         if self.lowering == "reference":
             return False
         if self.lowering == "kernel" and t.device.type != "cuda":

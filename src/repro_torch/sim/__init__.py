@@ -1,6 +1,6 @@
-"""repro_torch.sim — the vectorized FL-over-CFmMIMO engine on its main
-path (fused step, packed wire plane), the scenario registry entries it
-runs, round-log metrics and the single-cell runner."""
+"""repro_torch.sim — the vectorized FL-over-CFmMIMO engine's fused step
+on the packed, signplane and dense wire planes, the scenario registry
+entries it runs, round-log metrics and the single-cell runner."""
 from repro_torch.kernels import WirePath
 
 from .engine import (EngineConfig, RoundWork, RunState, UplinkSolution,

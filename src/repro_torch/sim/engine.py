@@ -1,25 +1,30 @@
 """Vectorized FL-over-CFmMIMO engine — all K users in one step per round.
 
-The port of ``repro.sim.engine.VectorizedFLEngine`` on its main path:
-the fused step on the packed wire plane
-(``EngineConfig(wire=WirePath(plane="packed"), fused=True)``).  One
-round:
+The port of ``repro.sim.engine.VectorizedFLEngine`` on its fused step
+(``EngineConfig(fused=True)``) over the three wire planes of
+:class:`WirePath`.  One round:
 
 1. the K users' minibatches are drawn on the host (numpy, the JAX
    engine's stream and draw order) and their L local AdaGrad steps run
    as one ``torch.func.vmap`` over the users — cuDNN/cuBLAS on the card;
-2. the stacked ``[K, d]`` deltas are encoded to packed planes (K1, the
-   scalar epilogue, K2) and decoded into one rho-weighted update (K3),
-   which the params take in place of the dense reconstructions;
+2. the stacked ``[K, d]`` deltas become one rho-weighted update
+   (:meth:`VectorizedFLEngine.aggregate`), by plane:
+
+   * ``"packed"`` — encoded to packed planes (K1, the scalar epilogue,
+     K2) and decoded into the update (K3), no dense reconstruction;
+   * ``"signplane"`` — quantized per user (``Quantizer.batched``), the
+     sign plane reduced through K4–K5 plus a dense correction
+     (``repro_torch.dist.signplane_weighted_aggregate``);
+   * ``"dense"`` — quantized per user and reduced by one weighted sum;
 3. the host solves power control and accounts latency
    (:meth:`solve_uplink_host`, :meth:`finish_round`).
 
 Modes of the JAX engine that are not ported raise
-:class:`NotImplementedError`: the exact mode (``fused=False``), the
-dense and signplane planes and cohorts, clusters, budgets and the
-checksum (all on :class:`WirePath`), churn (``participation < 1``),
-channel redraws, async rounds, the mesh, resilience and the replicate
-axis.  The port has no observability taps.
+:class:`NotImplementedError`: the exact mode (``fused=False``),
+cohorts, clusters, budgets and the checksum (all on
+:class:`WirePath`), churn (``participation < 1``), channel redraws,
+async rounds, the mesh, resilience and the replicate axis.  The port
+has no observability taps.
 """
 from __future__ import annotations
 
@@ -37,15 +42,17 @@ from repro_torch.core.quantize.base import flatten_pytree, unflatten_pytree
 from repro_torch.data.federated import user_fractions, validate_shards
 from repro_torch.data.synthetic import ImageDataset
 from repro_torch.device import resolve_device
+from repro_torch.dist.compressor import signplane_weighted_aggregate
 from repro_torch.kernels import WirePath, check_packed_dim
 from repro_torch.kernels.ops import mixed_res_wire_aggregate
 
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    """Engine knobs.  Only the fused packed-plane step is ported, and it
-    is the default here (the JAX engine defaults to the exact mode);
-    every other value raises :class:`NotImplementedError`."""
+    """Engine knobs.  Only the fused step is ported, and it is the
+    default here (the JAX engine defaults to the exact mode); the wire
+    plane is ``wire.plane``; every knob of a mode not ported raises
+    :class:`NotImplementedError`."""
     wire: WirePath = dataclasses.field(default_factory=WirePath)
     fused: bool = True
     participation: float = 1.0
@@ -127,11 +134,13 @@ class VectorizedFLEngine:
         self.model_spec = as_model_spec(model)
         self.engine_cfg = engine or EngineConfig()
         self.wire_path_spec = self.engine_cfg.wire
-        if quantizer.name != "mixed-resolution":
+        plane = self.wire_path_spec.plane
+        if (plane in ("signplane", "packed")
+                and quantizer.name != "mixed-resolution"):
             raise ValueError(
-                "the packed wire plane packs the mixed-resolution wire "
-                f"format; quantizer {quantizer.name!r} has none")
-        if quantizer.b > 16:
+                f"the {plane} wire plane packs the mixed-resolution "
+                f"wire format; quantizer {quantizer.name!r} has none")
+        if plane == "packed" and quantizer.b > 16:
             raise ValueError(
                 "the wire kernels store magnitude codes in <= 16 bits; "
                 f"got b={quantizer.b}")
@@ -154,7 +163,8 @@ class VectorizedFLEngine:
                        for k, v in init_params.items()}
         flat0, self.spec = flatten_pytree(self.params)
         self.d = int(flat0.numel())
-        check_packed_dim(self.d, where="the packed wire plane")
+        if plane == "packed":
+            check_packed_dim(self.d, where="the packed wire plane")
         self.comp_lat = computation_latency(fl.L, fl.dataset_size_for_comp,
                                             self.K)
         # the datasets live on the device for the whole run; each round
@@ -175,11 +185,24 @@ class VectorizedFLEngine:
         return torch.cat([(local[k] - params[k]).reshape(K, -1)
                           for k in sorted(params)], dim=1)
 
+    def aggregate(self, flat: torch.Tensor):
+        """Stacked ``[K, d]`` deltas -> ``(agg [d], bits [K], aux)``, the
+        rho-weighted update on this engine's wire plane."""
+        q, path, w = self.quantizer, self.wire_path_spec, self._weights
+        if path.plane == "packed":
+            return mixed_res_wire_aggregate(flat, w, q.lambda_, q.b,
+                                            path=path)
+        res, _ = q.batched(flat)
+        if path.plane == "signplane":
+            agg = signplane_weighted_aggregate(
+                flat, res.recon, res.aux["dw_q"], w, path=path)
+        else:
+            agg = torch.einsum("k,kd->d", w, res.recon)
+        return agg, res.bits, res.aux
+
     def _fused_step(self, params, xs, ys):
-        q = self.quantizer
         flat = self._batched_local(params, xs, ys)
-        agg, bits, aux = mixed_res_wire_aggregate(
-            flat, self._weights, q.lambda_, q.b, path=self.wire_path_spec)
+        agg, bits, aux = self.aggregate(flat)
         upd = unflatten_pytree(agg, self.spec)
         return {k: params[k] + upd[k] for k in params}, bits, aux
 
@@ -209,9 +232,9 @@ class VectorizedFLEngine:
         xs, ys = self.draw_minibatches(state)
         with torch.no_grad():
             state.params, bits, aux = self._fused_step(state.params, xs, ys)
+        mean_s = float(aux["s"].double().mean()) if "s" in aux else 0.0
         return RoundWork(t=t, bits_np=bits.double().cpu().numpy(),
-                         active=np.ones(self.K),
-                         mean_s=float(aux["s"].double().mean()))
+                         active=np.ones(self.K), mean_s=mean_s)
 
     def solve_uplink_host(self, chan: Optional[ChannelRealization],
                           bits_np: np.ndarray, active: np.ndarray

@@ -4,15 +4,15 @@ A Scenario is a declarative bundle of (dataset, partition, FL
 hyper-parameters, CFmMIMO network shape, engine behaviour) that
 ``build_problem`` turns into concrete engine inputs.  The dataclass is
 ``repro.sim.scenarios.Scenario`` field for field, so one scenario means
-the same run in both packages; the registry holds the two entries on
-the port's path, ``paper-table3`` and ``fused-wire``.
+the same run in both packages; the registry holds the entries the
+port runs, ``paper-table3``, ``signplane-wire`` and ``fused-wire``,
+each as the JAX package registers it.
 
-The port runs the packed wire plane only: a scenario whose
-``aggregation`` is not ``"wire"`` — ``paper-table3``'s own default is
-``"dense"`` — raises :class:`NotImplementedError` from
-:meth:`Scenario.engine_config`; replace it with ``aggregation="wire"``.
-Cohorts, clusters, budgets, replicates, async rounds, churn, channel
-redraws and registry transformers raise the same way.
+``aggregation`` picks the wire plane: ``"dense"`` (``paper-table3``'s
+default), ``"signplane"`` and ``"wire"`` (the packed plane).  Cohorts,
+clusters, budgets, replicates, async rounds, churn, channel redraws
+and registry transformers are not ported and raise
+:class:`NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -68,8 +68,7 @@ class Scenario:
     # engine behaviour
     participation: float = 1.0
     redraw_channel_every: int = 0
-    # wire-path plane: "dense" | "signplane" | "wire" (the port runs
-    # "wire", the packed plane)
+    # wire-path plane: "dense" | "signplane" | "wire" (the packed plane)
     aggregation: str = "dense"
     fused: bool = True               # production sweeps run fully fused
     # streaming cohorts and AP clusters (not ported)
@@ -187,6 +186,12 @@ register_scenario(Scenario(
     description="Table III operating point: K=40 non-IID over the "
                 "CFmMIMO uplink with a total-latency budget",
     K=40, T=60, partition="dirichlet", batch_size=32))
+
+register_scenario(Scenario(
+    name="signplane-wire",
+    description="paper default but aggregating through the "
+                "signpack/sign_dequant_reduce wire format (K4, K5)",
+    M=None, K=20, T=40, aggregation="signplane"))
 
 register_scenario(Scenario(
     name="fused-wire",

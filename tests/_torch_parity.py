@@ -7,6 +7,23 @@ from repro_torch.core.quantize.base import unflatten_pytree
 from repro_torch.kernels import ops
 
 
+def wire_of(eng, flat):
+    """What the engine's plane computes on the way to its aggregate for
+    the deltas ``flat`` — the buffers that must agree bit for bit
+    between the card and the CPU: the four packed buffers (K1, K2); or
+    the batched recons, the sign words (K4) and the sign-plane sum
+    (K5); or the batched recons alone (dense)."""
+    q, w, plane = eng.quantizer, eng._weights, eng.wire_path_spec.plane
+    if plane == "packed":
+        return tuple(ops.mixed_res_encode(flat, q.lambda_, q.b))
+    res, _ = q.batched(flat)
+    if plane == "dense":
+        return (res.recon,)
+    words = ops.signpack_op(ops.wire_view(flat).reshape(-1))
+    low = ops.packed_sign_weighted_sum(flat, w * res.aux["dw_q"] * 0.5)
+    return res.recon, words, low
+
+
 def card_vs_cpu_rounds(make, rounds: int):
     """Step one engine on the card and one on the CPU from identical
     params and minibatches, stage by stage.  ``make(device)`` builds the
@@ -16,15 +33,17 @@ def card_vs_cpu_rounds(make, rounds: int):
       — cuDNN and the CPU sum the gradients in different orders, and
       AdaGrad's ``1/sqrt(G + 1e-8)`` magnifies that roundoff of
       near-zero gradients by up to ``alpha / 1e-4``;
-    * ``card``, ``cpu``: ``(wire, agg, bits)`` of the wire path run on
-      the SAME card deltas — through K1–K3 on the card and through the
-      plain versions on the CPU — which must agree bit for bit.
+    * ``card``, ``cpu``: ``(wire, agg, bits, flat)`` of the engine's
+      plane run on the SAME card deltas ``flat`` — through the kernels
+      on the card and the plain versions on the CPU (:func:`wire_of`
+      for ``wire``).  ``wire`` and ``bits`` must agree bit for bit, and
+      so must the packed plane's ``agg``; the other planes' ``agg``
+      ends in a weighted sum that cuBLAS and the CPU order differently.
 
     Both runs then take the card's update, so every round starts from
     identical params."""
     g, c = make("cuda"), make("cpu")
     gs, cs = g.start_run(), c.start_run()
-    q = g.quantizer
     for _ in range(rounds):
         xg, yg = g.draw_minibatches(gs)
         xc, yc = c.draw_minibatches(cs)
@@ -33,15 +52,22 @@ def card_vs_cpu_rounds(make, rounds: int):
             fc = c._batched_local(cs.params, xc, yc)
             train_err = float((fg.cpu() - fc).abs().max() / fc.abs().max())
             runs = []
-            for flat, w in ((fg, g._weights), (fg.cpu(), c._weights)):
-                wire = ops.mixed_res_encode(flat, q.lambda_, q.b)
-                agg, bits, _ = ops.mixed_res_wire_aggregate(
-                    flat, w, q.lambda_, q.b)
-                runs.append((wire, agg, bits))
+            for eng, flat in ((g, fg), (c, fg.cpu())):
+                agg, bits, _ = eng.aggregate(flat)
+                runs.append((wire_of(eng, flat), agg, bits, flat))
             upd = unflatten_pytree(runs[0][1], g.spec)
             gs.params = {k: gs.params[k] + upd[k] for k in gs.params}
             cs.params = {k: v.cpu() for k, v in gs.params.items()}
         yield train_err, runs[0], runs[1]
+
+
+def agg_tol(weights: torch.Tensor, flat: torch.Tensor) -> float:
+    """``4 * G * eps32 * sum_g w_g * ||x_g||_inf``: how far two orders
+    of the same weighted sum of G reconstructions may land apart."""
+    w = weights.detach().double().abs().cpu()
+    inf = flat.detach().double().abs().amax(dim=1).cpu()
+    eps32 = float(np.finfo(np.float32).eps)
+    return 4 * len(w) * eps32 * float((w * inf).sum())
 
 
 def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:

@@ -2,8 +2,10 @@
 packed-wire FL round (``VectorizedFLEngine`` with
 ``EngineConfig(fused=True, wire=WirePath(plane="packed"))``) on the
 same data, shards, channel, minibatch stream and carried init; plus
-the slice's entry points, the modes it does not port, and its import
-isolation."""
+the slice's entry points, the dispatch of the three wire planes, the
+modes it does not port, and its import isolation.  The signplane and
+dense planes' own parity with the JAX engine is
+``tests/test_torch_signplane.py``."""
 import dataclasses
 import subprocess
 import sys
@@ -206,13 +208,58 @@ def test_unported_engine_modes_raise(kw):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(aggregation="dense"), dict(aggregation="signplane"),
     dict(cohort_size=8), dict(clusters=2), dict(replicates=4),
     dict(budget=object()), dict(async_mode=True, deadline_quantile=0.5),
     dict(participation=0.7)])
 def test_unported_scenario_modes_raise(kw):
     with pytest.raises(NotImplementedError):
         tiny(**kw).engine_config()
+
+
+@pytest.mark.parametrize("plane", ["dense", "signplane", "packed"])
+def test_planes_construct_and_dispatch(plane, monkeypatch):
+    """Each plane builds from its scenario and routes the engine's
+    aggregate to its own path on CPU tensors: the packed wire aggregate,
+    the signplane identity, or the dense weighted sum of the batched
+    recons."""
+    from repro_torch.dist import signplane_weighted_aggregate
+    from repro_torch.sim import engine as tengine
+    from repro_torch.sim import make_engine
+
+    aggregation = "wire" if plane == "packed" else plane
+    scn = tiny(M=None, aggregation=aggregation)
+    eng = make_engine(scn, MixedResolutionQuantizer(0.2, 10), None,
+                      device="cpu")
+    assert eng.wire_path_spec.plane == plane
+    calls = []
+
+    def spy(name):
+        real = getattr(tengine, name)
+
+        def wrapped(*args, **kw):
+            calls.append(name)
+            return real(*args, **kw)
+        monkeypatch.setattr(tengine, name, wrapped)
+
+    spy("mixed_res_wire_aggregate")
+    spy("signplane_weighted_aggregate")
+    flat = torch.tensor(np.random.default_rng(3).standard_normal(
+        (4, eng.d)).astype(np.float32))
+    agg, bits, _ = eng.aggregate(flat)
+    q, w = eng.quantizer, eng._weights
+    res, _ = q.batched(flat)
+    if plane == "packed":
+        assert calls == ["mixed_res_wire_aggregate"]
+        want = tops.mixed_res_wire_aggregate(flat, w, q.lambda_, q.b)[0]
+    elif plane == "signplane":
+        assert calls == ["signplane_weighted_aggregate"]
+        want = signplane_weighted_aggregate(flat, res.recon,
+                                            res.aux["dw_q"], w)
+    else:
+        assert calls == []
+        want = torch.einsum("k,kd->d", w, res.recon)
+    assert torch.equal(agg, want)
+    assert torch.equal(bits, res.bits)
 
 
 def test_unported_model_and_replicates_raise():
@@ -228,12 +275,15 @@ def test_unported_model_and_replicates_raise():
 
 def test_registry_matches_jax_entries():
     from repro.sim import get_scenario as jget
-    for name in ("paper-table3", "fused-wire"):
+    for name in ("paper-table3", "signplane-wire", "fused-wire"):
         a, b = dataclasses.asdict(jget(name)), dataclasses.asdict(
             get_scenario(name))
         a.pop("description"), b.pop("description")
         assert a == b
     assert isinstance(get_scenario("fused-wire"), Scenario)
+    assert get_scenario("paper-table3").engine_config().wire.plane == "dense"
+    assert get_scenario("signplane-wire").engine_config().wire.plane == \
+        "signplane"
 
 
 def test_port_imports_neither_jax_nor_repro():

@@ -1,4 +1,4 @@
-"""The CUDA kernels K1–K3 and the port's engine on an NVIDIA GPU.
+"""The CUDA kernels K1–K5 and the port's engine on an NVIDIA GPU.
 
 Every test here needs the card: the ``cuda`` fixture skips without one,
 so the module collects the same tests everywhere.  Run on a machine
@@ -7,20 +7,20 @@ with the card::
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 No jax here: the machine with the card has none.  Each kernel is held
-to its plain PyTorch version on the same CUDA inputs — planes, headers
-and the reduce bit for bit.
+to its plain PyTorch version on the same CUDA inputs — planes, headers,
+sign words and the reduces bit for bit.
 """
 import dataclasses
 
 import numpy as np
 import pytest
 import torch
-from _torch_parity import bits_equal, card_vs_cpu_rounds
+from _torch_parity import agg_tol, bits_equal, card_vs_cpu_rounds
 
 from repro_torch.core.quantize import MixedResolutionQuantizer
 from repro_torch.kernels import LAUNCHES, WirePath, reset_launch_counts
 from repro_torch.kernels import mixed_res as mr
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ops, quant_pack as qp, ref
 from repro_torch.sim import get_scenario, make_engine
 
 pytestmark = pytest.mark.gpu
@@ -65,7 +65,28 @@ def test_kernels_equal_plain_versions(cuda, d, lam, b):
         assert bits_equal(got, want)
     torch.cuda.synchronize()
     assert LAUNCHES == {"mixed_res_reduce": 4, "mixed_res_emit": 1,
-                        "mixed_res_dequant_reduce": 2}
+                        "mixed_res_dequant_reduce": 2, "signpack": 0,
+                        "sign_dequant_reduce": 0}
+
+
+@pytest.mark.parametrize("d", [3610, 65500])
+@pytest.mark.parametrize("G", [1, 40])
+def test_sign_kernels_equal_plain_versions(cuda, d, G):
+    x = deltas(d + G, max(G, 2), d, cuda)[:G]
+    x[0, :6] = torch.tensor([0.0, -0.0, float("nan"), 1.4e-45, -1.4e-45,
+                             float("inf")])
+    rows = ops.wire_view(x).reshape(-1, 128).contiguous()
+    reset_launch_counts()
+    words = qp.signpack(rows)
+    assert bits_equal(words, ref.signpack_ref(rows))
+    # x > 0 is IEEE on the card: a positive subnormal packs as 1
+    assert int(words[0, 0]) & 0x3F == 0b101000
+    w3 = words.reshape(G, -1, 4)
+    scales = torch.rand(G, device=cuda) * 2 - 0.5
+    got = qp.sign_dequant_reduce(w3, scales)
+    assert bits_equal(got, ref.sign_dequant_reduce_ref(w3, scales))
+    torch.cuda.synchronize()
+    assert LAUNCHES["signpack"] == 1 and LAUNCHES["sign_dequant_reduce"] == 1
 
 
 def test_kernel_wrappers_check_inputs(cuda):
@@ -101,4 +122,40 @@ def test_engine_round_on_card_matches_cpu(cuda):
         assert bits_equal(card[2], cpu[2])
         assert bits_equal(card[1], cpu[1])
     assert LAUNCHES == {"mixed_res_reduce": 8, "mixed_res_emit": 4,
-                        "mixed_res_dequant_reduce": 2}
+                        "mixed_res_dequant_reduce": 2, "signpack": 0,
+                        "sign_dequant_reduce": 0}
+
+
+@pytest.mark.parametrize("plane", ["signplane", "dense"])
+def test_plane_round_on_card_matches_cpu(cuda, plane):
+    """Two narrow signplane or dense rounds on the card and on the CPU
+    from identical params and minibatches: the deltas within 1e-3 of
+    their largest element; on the same deltas the batched recons, bits,
+    sign words (K4) and sign-plane sum (K5) bit for bit, the aggregate
+    within 4 * G * eps32 * sum_g w_g * ||x_g||_inf (its weighted sum
+    runs in cuBLAS on the card)."""
+    scn = dataclasses.replace(
+        get_scenario("paper-table3"), aggregation=plane, K=4, T=2,
+        n_train=160, n_test=40, batch_size=8, L=2, M=4, N=2, eval_every=1)
+    q = MixedResolutionQuantizer(0.2, 10)
+    from repro_torch.configs.paper_cnn import PaperCNNConfig
+    from repro_torch.fl.cnn import init_cnn
+    init = init_cnn(torch.Generator().manual_seed(0), PaperCNNConfig())
+    make = lambda dev: make_engine(scn, q, "bisection-lp", device=dev,
+                                   init_params=init)
+    w = make("cpu")._weights
+    reset_launch_counts()
+    for train_err, card, cpu in card_vs_cpu_rounds(make, scn.T):
+        assert train_err <= 1e-3, train_err
+        for a, c in zip(card[0], cpu[0]):
+            assert bits_equal(a, c)
+        assert bits_equal(card[2], cpu[2])
+        tol = agg_tol(w, card[3])
+        assert float((card[1].cpu() - cpu[1]).abs().max()) <= tol
+    # per round: the engine's aggregate (one K4, one K5) and the
+    # comparison's signpack_op and packed_sign_weighted_sum
+    sign = plane == "signplane"
+    assert LAUNCHES == {"mixed_res_reduce": 0, "mixed_res_emit": 0,
+                        "mixed_res_dequant_reduce": 0,
+                        "signpack": 6 if sign else 0,
+                        "sign_dequant_reduce": 4 if sign else 0}

@@ -208,10 +208,18 @@ def test_wrappers_run_plain_versions_on_cpu_tensors():
         assert torch.equal(a, c)
 
 
-@pytest.mark.parametrize("plane", ["dense", "signplane"])
-def test_unported_planes_raise(plane):
-    with pytest.raises(NotImplementedError):
-        WirePath(plane=plane)
+@pytest.mark.parametrize("kw", [dict(plane="signplane", cohort_size=8),
+                                dict(plane="dense", cohort_size=8),
+                                dict(plane="signplane", checksum=True),
+                                dict(plane="dense", checksum=True)])
+def test_wire_plane_rules_match_jax(kw):
+    """Combinations the JAX spec refuses raise its ValueError here too,
+    before the knobs' own NotImplementedError."""
+    from repro.kernels import WirePath as JWire
+    with pytest.raises(ValueError):
+        JWire(**kw)
+    with pytest.raises(ValueError, match="plane='packed'"):
+        WirePath(**kw)
 
 
 @pytest.mark.parametrize("field,value", [("cohort_size", 8),
