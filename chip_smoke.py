@@ -5,17 +5,23 @@
 
 1. prints the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions, and turns TF32 off for convolutions and matmuls;
-2. builds the wire kernels from ``src/repro_torch/kernels/csrc`` with
-   nvcc, one process per source, all started together (K1–K3 in
-   ``mixed_res.cu``, K4–K5 in ``quant_pack.cu``), printing each build's
-   time and ptxas' register/spill lines;
+2. builds the kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
+   one process per source, all started together (K1–K3 in
+   ``mixed_res.cu``, K4–K5 in ``quant_pack.cu``, K6 in
+   ``flash_decode.cu``), printing each build's time and ptxas'
+   register/spill lines;
 3. holds each kernel against its plain PyTorch version on the card, at
    the main path's shapes (K1–K3: U=40 users, W=3840 rows, d=462,410,
    b=10, lambda=0.2; K4–K5: G=40 planes of 3840 rows) and at edge
    shapes — planes, headers, sign words and the reduces bit for bit —
    and one narrow two-round run through the kernels against the same
-   run on the CPU's plain path;
-4. times each kernel and its plain version with CUDA events;
+   run on the CPU's plain path; K6 (flash-decode attention) at the
+   serve shape (B=8, 8 kv heads, G=4, D=128, S=4096) and edge shapes,
+   f32 within 1e-5 and bf16 within 2e-2, and a narrow reduced
+   granite-3-8b decode through K6 against the same decode on the CPU;
+4. times each kernel and its plain version with CUDA events, and K6
+   beside ``scaled_dot_product_attention`` at the serve shape and at
+   ``decode_32k``'s (B=128, S=32768, one layer's cache);
 5. on one set of full-width deltas from the card, holds the signplane,
    dense and packed aggregates against each other, and the card's
    signplane aggregate against the CPU's;
@@ -25,7 +31,12 @@
    read just after: 3 rounds on the packed wire plane (K1–K3), 3 on the
    signplane plane (K4–K5), and 1 on the dense plane as registered;
    then a stage breakdown of one packed and one signplane round;
-7. prints one ``{"kernels": [...]}`` JSON line (K1–K5), and ends with
+7. serves full-width granite-3-8b (random bf16 weights from a seed, 40
+   layers): B=8 prompts of 16 tokens, 48 generated, a 4096-position
+   cache, with the launch counters zeroed just before — 40 K6 launches
+   a step — printing ms/step, tokens/s and peak memory, and holds
+   teacher-forced decode logits against ``forward`` on the same tokens;
+8. prints one ``{"kernels": [...]}`` JSON line (K1–K6), and ends with
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, before printing any result, without a CUDA device or
@@ -44,11 +55,22 @@ sys.path.insert(0, str(ROOT / "src"))
 
 MAIN = dict(U=40, d=462410, b=10, lam=0.2)
 ROUNDS = 3
+# the serve path: granite-3-8b decode, and K6's shape there (one layer)
+SERVE = dict(arch="granite-3-8b", B=8, prompt=16, gen=48, max_len=4096)
+K6_SERVE = dict(B=8, Hkv=8, G=4, S=4096, D=128, Dv=128)
+K6_DECODE_32K = dict(B=128, Hkv=8, G=4, S=32768, D=128, Dv=128)
+K6_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# teacher-forced decode logits against forward at full width, bf16:
+# within this share of max |logit| (PERF.md)
+SERVE_LOGIT_TOL = 5e-2
 EPS32 = 2.0 ** -23
 # published peaks (NVIDIA data sheets): device memory bytes/s and dense
 # f32 (non-tensor-core) operations/s, by the card's name
 PEAKS = {"H100 PCIe": (2.0e12, 51e12), "H100 NVL": (3.9e12, 60e12),
          "H100": (3.35e12, 67e12)}
+# dense bf16 tensor-core operations/s (NVIDIA data sheets): K6's bound on
+# bf16 inputs counts its operations at this rate
+BF16_PEAKS = {"H100 PCIe": 756e12, "H100 NVL": 835e12, "H100": 989e12}
 # operations each kernel does per element, counted from the source (K1:
 # abs, divide, compares, min/max, count; K2: the same plus shifts and
 # ORs for packing; K3, per user and output element: two products, an
@@ -59,15 +81,17 @@ REPLACES = {"K1": "src/repro/kernels/mixed_res.py:122",
             "K2": "src/repro/kernels/mixed_res.py:198",
             "K3": "src/repro/kernels/mixed_res.py:268",
             "K4": "src/repro/kernels/quant_pack.py:36",
-            "K5": "src/repro/kernels/quant_pack.py:66"}
+            "K5": "src/repro/kernels/quant_pack.py:66",
+            "K6": "src/repro/kernels/flash_decode.py:69"}
 SOURCES = {"K1": "src/repro_torch/kernels/csrc/mixed_res.cu",
            "K2": "src/repro_torch/kernels/csrc/mixed_res.cu",
            "K3": "src/repro_torch/kernels/csrc/mixed_res.cu",
            "K4": "src/repro_torch/kernels/csrc/quant_pack.cu",
-           "K5": "src/repro_torch/kernels/csrc/quant_pack.cu"}
+           "K5": "src/repro_torch/kernels/csrc/quant_pack.cu",
+           "K6": "src/repro_torch/kernels/csrc/flash_decode.cu"}
 NAMES = {"K1": "mixed_res_reduce", "K2": "mixed_res_emit",
          "K3": "mixed_res_dequant_reduce", "K4": "signpack",
-         "K5": "sign_dequant_reduce"}
+         "K5": "sign_dequant_reduce", "K6": "flash_decode"}
 
 
 def phase(name):
@@ -82,8 +106,8 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def peaks(name):
-    for key, val in PEAKS.items():
+def peaks(name, table=PEAKS):
+    for key, val in table.items():
         if key in name:
             return val
     raise RuntimeError(f"no published peak rates for {name!r}")
@@ -411,13 +435,298 @@ def round_breakdown(eng, state):
     print(f"  total {total:.6f} s")
 
 
+def kv_inputs(B, Hkv, G, S, D, Dv, dtype, seed, device):
+    """q [B, Hkv*G, D] and caches [B, S, Hkv, D(v)] (the cache layout),
+    standard normal, made on the card."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    mk = lambda *shape: torch.randn(shape, generator=g, device=device,
+                                    dtype=torch.float32).to(dtype)
+    return mk(B, Hkv * G, D), mk(B, S, Hkv, D), mk(B, S, Hkv, Dv)
+
+
+def check_flash_decode(dev, B, Hkv, G, S, D, Dv, dtype, length):
+    """K6 through ``flash_decode_op`` (caches in their layout, length on
+    the card) against its plain version on the same inputs, within
+    K6_TOL absolute and relative.  Returns the largest |difference|."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    dt = getattr(torch, dtype)
+    q, k, v = kv_inputs(B, Hkv, G, S, D, Dv, dt, seed=S + G + length,
+                        device=dev)
+    n = torch.tensor(length, dtype=torch.int32, device=dev)
+    got = ops.flash_decode_op(q, k, v, n).float()
+    want = ref.flash_decode_ref(q.reshape(B, Hkv, G, D), k.transpose(1, 2),
+                                v.transpose(1, 2), length)
+    want = want.reshape(B, Hkv * G, Dv).float()
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    tol = K6_TOL[dtype]
+    if not bool(((got - want).abs() <= tol + tol * want.abs()).all()):
+        raise AssertionError(f"K6 != plain at B={B} Hkv={Hkv} G={G} S={S} "
+                             f"D={D} Dv={Dv} {dtype} length={length}: max "
+                             f"abs err {err:.3e}")
+    return err
+
+
+def narrow_decode_check(dev):
+    """Reduced granite-3-8b regrouped to 2 kv heads (G=2), f32: 12
+    tokens of decode on the card through K6 and on the CPU through the
+    plain version, from the same params; logits within 1e-4 of their
+    largest, one K6 launch per layer and step."""
+    import dataclasses as dc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import decode_step, init_cache, init_model
+    from repro_torch.models.layers import tree_map
+
+    cfg = dc.replace(get_config(SERVE["arch"]).reduced(), num_kv_heads=2,
+                     dtype="float32")
+    devs = {"host": torch.device("cpu"), "card": dev}
+    host_p = init_model(torch.Generator().manual_seed(0), cfg, device="cpu")
+    params = {"host": host_p, "card": tree_map(lambda t: t.to(dev), host_p)}
+    caches = {w: init_cache(cfg, 2, 40, cfg.dtype, device=d)
+              for w, d in devs.items()}
+    tokens = torch.randint(0, cfg.vocab_size, (2, 12),
+                           generator=torch.Generator().manual_seed(1))
+    before = LAUNCHES["flash_decode"]
+    worst = 0.0
+    for t in range(tokens.shape[1]):
+        out = {}
+        for w, d in devs.items():
+            idx = torch.tensor(t, dtype=torch.int32, device=d)
+            lg, caches[w] = decode_step(params[w], caches[w],
+                                        tokens[:, t:t + 1].to(d), idx, cfg)
+            out[w] = lg.cpu()
+        err = float((out["card"] - out["host"]).abs().max()
+                    / out["host"].abs().max())
+        worst = max(worst, err)
+    launched = LAUNCHES["flash_decode"] - before
+    print(f"narrow decode ({cfg.name}, kv heads 2, f32, 12 tokens), card "
+          f"through K6 vs CPU plain: logits max rel err {worst:.3e} "
+          f"(<= 1e-4); K6 launches {launched}")
+    if worst > 1e-4 or launched != cfg.num_layers * tokens.shape[1]:
+        raise AssertionError("the narrow decode on the card disagrees with "
+                             "the CPU's plain path")
+
+
+def k6_work(B, Hkv, G, S, D, Dv, dtype, length):
+    """(bytes, operations) K6 must move and do at these inputs: q and
+    the positions < length of k and v read once, the output written
+    once; 2 operations per multiply-add of q.k and p.v."""
+    import torch
+    es = torch.tensor([], dtype=getattr(torch, dtype)).element_size()
+    L = min(S, length)
+    by = es * (B * Hkv * G * D + B * Hkv * L * (D + Dv) + B * Hkv * G * Dv)
+    return by, 2 * B * Hkv * G * L * (D + Dv)
+
+
+def time_flash_decode(dev, shape, dtype, card, iters):
+    """K6, its plain version and one ``scaled_dot_product_attention``
+    call (flash backend, ``enable_gqa``) on the same inputs at full
+    length; returns the timing row."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels import ops, ref
+
+    B, Hkv, G, S, D, Dv = (shape[k] for k in ("B", "Hkv", "G", "S", "D",
+                                               "Dv"))
+    dt = getattr(torch, dtype)
+    q, k, v = kv_inputs(B, Hkv, G, S, D, Dv, dt, seed=7, device=dev)
+    n = torch.tensor(S, dtype=torch.int32, device=dev)
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)       # views, no copy
+    got = ops.flash_decode_op(q, k, v, n)
+
+    def plain():
+        return ref.flash_decode_ref(q.reshape(B, Hkv, G, D), kt, vt, S)
+
+    def library():
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            return F.scaled_dot_product_attention(
+                q[:, :, None], kt, vt, enable_gqa=True)
+
+    ms = time_ms(lambda: ops.flash_decode_op(q, k, v, n), iters)
+    lib_ms = time_ms(library, iters)
+    lib_err = float((library()[:, :, 0].float() - got.float()).abs().max())
+    torch.cuda.reset_peak_memory_stats()
+    plain_ms = time_ms(plain, 3)
+    err = float((plain().reshape(B, Hkv * G, Dv).float()
+                 - got.float()).abs().max())
+    plain_peak = torch.cuda.max_memory_allocated() / 2**30
+    del q, k, v, kt, vt, got
+    torch.cuda.empty_cache()
+    mem_rate, _ = peaks(card.split(",")[0])
+    op_rate = peaks(card.split(",")[0], BF16_PEAKS) if dtype == "bfloat16" \
+        else peaks(card.split(",")[0])[1]
+    by, ops_ = k6_work(B, Hkv, G, S, D, Dv, dtype, S)
+    t_bytes, t_ops = by / mem_rate * 1e3, ops_ / op_rate * 1e3
+    print(f"K6 at B={B} Hkv={Hkv} G={G} S={S} D={D} Dv={Dv} {dtype}: kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa (flash, gqa) "
+          f"{lib_ms:.4f} ms, bound {max(t_bytes, t_ops) * 1e3:.1f} us "
+          f"({by / 1e6:.1f} MB); |K6 - plain| {err:.3e}, |K6 - sdpa| "
+          f"{lib_err:.3e}; peak device memory with the plain version "
+          f"{plain_peak:.2f} GiB on {card}")
+    if err > K6_TOL[dtype] * 2:
+        raise AssertionError(f"K6 disagrees with its plain version at the "
+                             f"timed shape: {err}")
+    return {"ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": by, "library_ms": lib_ms, "max_abs_err": err}
+
+
+def decode_breakdown(params, cfg, prompts, ms_step, steps=4):
+    """Where a full-width decode step's time goes: ``torch.profiler``
+    over ``steps`` decode steps (after a warm-up step) — the device's
+    busy time (the sum of its kernels' times) against the host clock
+    under the profiler and against ``ms_step``, the unprofiled step;
+    the top ops by host time and the top kernels by device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import decode_step, init_cache
+
+    B = prompts.shape[0]
+    dev = prompts.device
+    cache = init_cache(cfg, B, SERVE["max_len"], cfg.dtype, device=dev)
+    idx = torch.zeros((), dtype=torch.int32, device=dev)
+    tok = prompts[:, :1]
+    decode_step(params, cache, tok, idx, cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            idx += 1
+            decode_step(params, cache, tok, idx, cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    dev_time = lambda e: e.self_device_time_total
+    busy_ms = sum(dev_time(e) for e in kernels) / 1e3 / steps
+    print(f"decode step under the profiler: {1e3 * wall / steps:.3f} ms/step "
+          f"wall, device busy {busy_ms:.3f} ms/step ({len(kernels)} kernel "
+          f"names, {sum(e.count for e in kernels) / steps:.0f} launches/step);"
+          f" idle share {1 - busy_ms / (1e3 * wall / steps):.3f} under the "
+          f"profiler, {1 - busy_ms / ms_step:.3f} of the unprofiled "
+          f"{ms_step:.3f} ms/step")
+    print("  top ops by host time (self, ms/step, calls/step):")
+    for e in sorted(events, key=lambda e: -e.self_cpu_time_total)[:12]:
+        print(f"    {e.key[:60]:60s} {e.self_cpu_time_total / 1e3 / steps:8.3f}"
+              f" {e.count / steps:7.1f}")
+    print("  top kernels by device time (ms/step, launches/step):")
+    for e in sorted(kernels, key=lambda e: -dev_time(e))[:8]:
+        print(f"    {e.key[:60]:60s} {dev_time(e) / 1e3 / steps:8.3f}"
+              f" {e.count / steps:7.1f}")
+
+
+def serve_full_width(dev):
+    """granite-3-8b at full width (random weights from a seed, cast to
+    bf16 once): SERVE's prompts through ``greedy_generate`` with the
+    launch counters zeroed just before and read just after; then one
+    counted decode step; then teacher-forced decode logits against
+    ``forward`` on the same tokens.  Returns the K6 launches of the
+    serve run."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.models import (decode_step, forward, init_cache,
+                                    init_model, param_count)
+    from repro_torch.serve import cast_params, greedy_generate
+
+    cfg = get_config(SERVE["arch"])
+    t0 = time.perf_counter()
+    params = init_model(torch.Generator(device=dev).manual_seed(0), cfg,
+                        device=dev)
+    n_params = param_count(params)
+    params = cast_params(params, cfg.dtype)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"{cfg.name}: {n_params} params, {cfg.num_layers} layers, "
+          f"d_model {cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size} (padded "
+          f"{cfg.vocab_padded}), {cfg.dtype}; made and cast in "
+          f"{time.perf_counter() - t0:.1f} s; weights "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    B, P, gen = SERVE["B"], SERVE["prompt"], SERVE["gen"]
+    prompts = torch.tensor(np.random.default_rng(0).integers(
+        1, cfg.vocab_size, (B, P)), device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    res = greedy_generate(params, cfg, prompts, gen, SERVE["max_len"])
+    counts = dict(LAUNCHES)
+    steps = P + res.decode_steps
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ms_step = 1e3 * res.decode_s / res.decode_steps
+    print(f"serve B={B}: prefill {P} tokens in {res.prefill_s:.3f} s "
+          f"({1e3 * res.prefill_s / P:.2f} ms/step); decode "
+          f"{res.decode_steps} steps in {res.decode_s:.3f} s: "
+          f"{ms_step:.3f} ms/step, "
+          f"{B * res.decode_steps / res.decode_s:.1f} tokens/s; peak device "
+          f"memory {peak:.2f} GiB; launches {counts}")
+    want = dict({k: 0 for k in counts}, flash_decode=cfg.num_layers * steps)
+    if counts != want:
+        raise AssertionError(f"serve launches {counts}, expected {want}")
+    toks = res.tokens
+    if toks.shape != (B, gen) or not bool(((toks >= 0)
+                                           & (toks < cfg.vocab_size)).all()):
+        raise AssertionError(f"generated ids out of range: {toks.shape}")
+    print("sample token ids:", toks[0, :12].cpu().tolist())
+
+    decode_breakdown(params, cfg, prompts, ms_step)
+
+    # one decode step, counted alone: 40 K6 launches
+    seq = torch.cat([prompts, toks[:, :-1]], dim=1)          # [B, P+gen-1]
+    cache = init_cache(cfg, B, SERVE["max_len"], cfg.dtype, device=dev)
+    idx = torch.zeros((), dtype=torch.int32, device=dev)
+    reset_launch_counts()
+    lg, cache = decode_step(params, cache, seq[:, :1], idx, cfg)
+    torch.cuda.synchronize()
+    if LAUNCHES["flash_decode"] != cfg.num_layers:
+        raise AssertionError(f"one decode step launched K6 "
+                             f"{LAUNCHES['flash_decode']} times")
+    # teacher-forced decode over the served tokens against forward
+    outs = [lg[:, 0]]
+    for t in range(1, seq.shape[1]):
+        idx += 1
+        lg, cache = decode_step(params, cache, seq[:, t:t + 1], idx, cfg)
+        outs.append(lg[:, 0])
+    dec = torch.stack(outs, dim=1).float()
+    with torch.no_grad():
+        fwd = forward(params, {"tokens": seq}, cfg)[0].float()
+    scale = float(fwd.abs().max())
+    err = float((dec - fwd).abs().max()) / scale
+    agree = float((dec[..., :cfg.vocab_size].argmax(-1)
+                   == fwd[..., :cfg.vocab_size].argmax(-1)).float().mean())
+    finite = bool(torch.isfinite(dec).all() and torch.isfinite(fwd).all())
+    print(f"full-width decode vs forward on {seq.shape[1]} tokens x {B}: max "
+          f"|diff| {err:.3e} of max |logit| {scale:.3f} (<= "
+          f"{SERVE_LOGIT_TOL}); argmax agreement {agree:.4f}; finite "
+          f"{finite}; greedy tokens vs forward argmax "
+          f"{float((fwd[:, P - 1:, :cfg.vocab_size].argmax(-1) == toks).float().mean()):.4f}")
+    if not finite or err > SERVE_LOGIT_TOL:
+        raise AssertionError("full-width decode logits disagree with forward")
+    del params, cache
+    torch.cuda.empty_cache()
+    return counts["flash_decode"]
+
+
 def build_all():
     """Build every kernel source at once, one nvcc process each."""
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import mixed_res as mr, quant_pack as qp
 
-    with ThreadPoolExecutor(2) as pool:
-        infos = list(pool.map(lambda m: m.build_info(), (mr, qp)))
+    from repro_torch.kernels import flash_decode as fd
+
+    with ThreadPoolExecutor(3) as pool:
+        infos = list(pool.map(lambda m: m.build_info(), (mr, qp, fd)))
     for info in infos:
         print(f"built {info.path.name} in {info.seconds:.2f} s")
         for line in info.log.splitlines():
@@ -478,6 +787,33 @@ def main():
           "+-subnormal, an all-zero plane) bit-exact")
     narrow_reference_check(dev)
 
+    phase("K6 flash-decode against its plain version")
+    sv = K6_SERVE
+    for dtype in ("bfloat16", "float32"):
+        e = check_flash_decode(dev, sv["B"], sv["Hkv"], sv["G"], sv["S"],
+                               sv["D"], sv["Dv"], dtype, sv["S"])
+        errs["K6"] = max(errs.get("K6", 0.0), e)
+        print(f"K6 serve shape B={sv['B']} Hkv={sv['Hkv']} G={sv['G']} "
+              f"S={sv['S']} D=Dv={sv['D']} {dtype}, full length: max abs "
+              f"err {e:.3e} (tol {K6_TOL[dtype]})")
+    n_edge, worst = 0, {}
+    for dtype in ("float32", "bfloat16"):
+        for (B, Hkv, G, S, D, Dv) in ((2, 8, 4, 4096, 128, 128),
+                                      (1, 8, 5, 512, 128, 64),
+                                      (2, 2, 8, 2048, 64, 64),
+                                      (3, 8, 5, 1000, 128, 128),
+                                      (1, 1, 1, 777, 64, 64)):
+            for length in (1, 3, S - 17, S):
+                e = check_flash_decode(dev, B, Hkv, G, S, D, Dv, dtype,
+                                       length)
+                worst[dtype] = max(worst.get(dtype, 0.0), e)
+                n_edge += 1
+    print(f"K6 edge shapes: {n_edge} cases (f32 and bf16; D != Dv 128/64; "
+          f"G in {{1,4,5,8}}; S in {{512,777,1000,2048,4096}}, S % 512 != 0 "
+          f"included; length 1, 3, S-17, S) within tolerance, max abs err "
+          f"{worst}")
+    narrow_decode_check(dev)
+
     phase("timing")
     x3, head, wire, w = main_inputs
     rows, words, scales = sign_inputs
@@ -525,6 +861,14 @@ def main():
               f"bound {max(t_bytes, t_ops) * 1e3:.1f} us "
               f"({by / 1e6:.2f} MB) on {card}")
     del x3, head, wire, w, main_inputs, rows, words, scales, sign_inputs
+    k6_row = dict({"name": "K6 flash_decode", "route": "cuda",
+                   "source": SOURCES["K6"], "replaces": REPLACES["K6"],
+                   "launches": 0},
+                  **time_flash_decode(dev, K6_SERVE, "bfloat16", card, 50))
+    k6_row["max_abs_err"] = max(k6_row["max_abs_err"], errs["K6"])
+    k6_row["decode_32k"] = time_flash_decode(dev, K6_DECODE_32K, "bfloat16",
+                                             card, 10)
+    rows_json.append(k6_row)
 
     q = MixedResolutionQuantizer(lam, b)
     table3 = get_scenario("paper-table3")
@@ -567,6 +911,11 @@ def main():
     if scn.engine_config().wire.plane != "dense":
         raise AssertionError("paper-table3 is registered on the dense plane")
     drive(make_engine(scn, q, "bisection-lp", device=dev), 1, none, "dense")
+
+    phase(f"serve path: full-width {SERVE['arch']}, B={SERVE['B']}, "
+          f"prompt {SERVE['prompt']}, {SERVE['gen']} generated, cache "
+          f"{SERVE['max_len']}")
+    launches["flash_decode"] = serve_full_width(dev)
 
     for row in rows_json:
         row["launches"] = launches[row["name"].split()[1]]

@@ -21,7 +21,7 @@ from . import build as _build
 # a wrapper counts here where it launches its kernel, and nowhere else
 LAUNCHES: Dict[str, int] = {"mixed_res_reduce": 0, "mixed_res_emit": 0,
                             "mixed_res_dequant_reduce": 0, "signpack": 0,
-                            "sign_dequant_reduce": 0}
+                            "sign_dequant_reduce": 0, "flash_decode": 0}
 
 P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float

@@ -1,4 +1,5 @@
-"""The wire paths built on K1–K5: layout, encode, fused reduce.
+"""The ops built on K1–K6: the wire paths (layout, encode, fused
+reduce) and the serve path's decode attention.
 
 Packed plane: ``mixed_res_encode`` turns U stacked deltas into packed
 planes in two passes (K1, a scalar epilogue, K2);
@@ -10,16 +11,20 @@ launch and reduces them with per-peer scales in one K5 launch.
 
 Which lowering runs is the :class:`WirePath`'s ``lowering``, resolved
 by the tensor's device.
+
+Decode attention: ``flash_decode_op`` runs K6 on CUDA tensors and its
+plain version on CPU tensors, over the ``[B, S, Hkv, D]`` KV cache.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from . import ref as _ref
+from .flash_decode import flash_decode
 from .mixed_res import (H_DBAR, H_DWQ, H_INF, H_LAM, H_STEP,
                         mixed_res_dequant_reduce, mixed_res_emit,
                         mixed_res_reduce)
@@ -183,3 +188,27 @@ def mixed_res_wire_aggregate(flat: torch.Tensor, weights: torch.Tensor,
     aux = {"s": s, "dbar": dbar.to(torch.int32), "r": inf - dw_q,
            "dw_q": dw_q, "inf": inf}
     return agg, bits, aux
+
+
+def flash_decode_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    length: Union[int, torch.Tensor], kv_block: int = 512
+                    ) -> torch.Tensor:
+    """Single-token GQA decode attention.
+
+    q: [B, H, D]; k/v: [B, S, Hkv, D(v)] (the KV cache's layout);
+    length: int or one-int tensor — positions >= length are masked.
+    Returns [B, H, Dv].  Head h reads kv head h // (H/Hkv).  The caches
+    go to K6 as transposed views, so nothing is copied.  ``kv_block`` is
+    the JAX kernel's KV tile; it is taken for the same signature and
+    does not change the result (K6 picks its own split of S, and the
+    plain version has none)."""
+    del kv_block
+    B, H, D = q.shape
+    Hkv = k.shape[2]
+    if H % Hkv:
+        raise ValueError(f"{H} query heads do not group over {Hkv} kv heads")
+    if k.dtype != q.dtype:          # the JAX path's ``ck.astype(dt)``
+        k, v = k.to(q.dtype), v.to(q.dtype)
+    qg = q.reshape(B, Hkv, H // Hkv, D).contiguous()
+    out = flash_decode(qg, k.transpose(1, 2), v.transpose(1, 2), length)
+    return out.reshape(B, H, -1)

@@ -1,7 +1,8 @@
-"""Plain PyTorch versions of the wire kernels K1–K5.
+"""Plain PyTorch versions of the kernels K1–K6.
 
 Each function computes what its CUDA kernel in ``csrc/mixed_res.cu``
-(K1–K3) or ``csrc/quant_pack.cu`` (K4–K5) computes, with the same
+(K1–K3), ``csrc/quant_pack.cu`` (K4–K5) or ``csrc/flash_decode.cu``
+(K6) computes, with the same
 arithmetic as the jnp oracles in ``repro/kernels/ref.py`` (K5 in a
 fixed fold order): the CPU path of the port, the reference the
 kernels are held to on the card, and the twin the parity tests hold
@@ -13,7 +14,8 @@ bit reinterpretations through int32, which every device supports).
 """
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -165,3 +167,21 @@ def mixed_res_dequant_reduce_ref(signs: torch.Tensor, hi: torch.Tensor,
     for g in range(1, G):
         out = out + one(g)
     return out
+
+
+def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     length: Union[int, torch.Tensor]) -> torch.Tensor:
+    """K6.  Single-token decode attention, the twin of the JAX
+    package's ``flash_decode_ref``.
+
+    q: [B, Hkv, G, D]; k: [B, Hkv, S, D]; v: [B, Hkv, S, Dv] (any
+    strides); length: int or int tensor — positions >= length are
+    masked out.  Float32 inside; returns [B, Hkv, G, Dv] in q's dtype."""
+    S, D = k.shape[2], q.shape[-1]
+    scores = torch.einsum("bhgd,bhsd->bhgs", q.float(), k.float())
+    scores = scores / torch.full_like(scores, math.sqrt(D))
+    length = torch.as_tensor(length, device=q.device)
+    mask = torch.arange(S, device=q.device) < length
+    scores = torch.where(mask, scores, -math.inf)
+    w = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhgs,bhsv->bhgv", w, v.float()).to(q.dtype)

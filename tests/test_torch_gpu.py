@@ -1,4 +1,5 @@
-"""The CUDA kernels K1–K5 and the port's engine on an NVIDIA GPU.
+"""The CUDA kernels K1–K6, the port's engine and its decoder on an
+NVIDIA GPU.
 
 Every test here needs the card: the ``cuda`` fixture skips without one,
 so the module collects the same tests everywhere.  Run on a machine
@@ -8,7 +9,8 @@ with the card::
 
 No jax here: the machine with the card has none.  Each kernel is held
 to its plain PyTorch version on the same CUDA inputs — planes, headers,
-sign words and the reduces bit for bit.
+sign words and the reduces bit for bit; K6, whose sums run in another
+order, within 1e-5 (f32) and 2e-2 (bf16).
 """
 import dataclasses
 
@@ -20,6 +22,7 @@ from _torch_parity import agg_tol, bits_equal, card_vs_cpu_rounds
 from repro_torch.core.quantize import MixedResolutionQuantizer
 from repro_torch.kernels import LAUNCHES, WirePath, reset_launch_counts
 from repro_torch.kernels import mixed_res as mr
+from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import ops, quant_pack as qp, ref
 from repro_torch.sim import get_scenario, make_engine
 
@@ -66,7 +69,7 @@ def test_kernels_equal_plain_versions(cuda, d, lam, b):
     torch.cuda.synchronize()
     assert LAUNCHES == {"mixed_res_reduce": 4, "mixed_res_emit": 1,
                         "mixed_res_dequant_reduce": 2, "signpack": 0,
-                        "sign_dequant_reduce": 0}
+                        "sign_dequant_reduce": 0, "flash_decode": 0}
 
 
 @pytest.mark.parametrize("d", [3610, 65500])
@@ -123,7 +126,7 @@ def test_engine_round_on_card_matches_cpu(cuda):
         assert bits_equal(card[1], cpu[1])
     assert LAUNCHES == {"mixed_res_reduce": 8, "mixed_res_emit": 4,
                         "mixed_res_dequant_reduce": 2, "signpack": 0,
-                        "sign_dequant_reduce": 0}
+                        "sign_dequant_reduce": 0, "flash_decode": 0}
 
 
 @pytest.mark.parametrize("plane", ["signplane", "dense"])
@@ -158,4 +161,87 @@ def test_plane_round_on_card_matches_cpu(cuda, plane):
     assert LAUNCHES == {"mixed_res_reduce": 0, "mixed_res_emit": 0,
                         "mixed_res_dequant_reduce": 0,
                         "signpack": 6 if sign else 0,
-                        "sign_dequant_reduce": 4 if sign else 0}
+                        "sign_dequant_reduce": 4 if sign else 0,
+                        "flash_decode": 0}
+
+
+# ---------------------------------------------------------------- K6
+def kv_inputs(seed, B, Hkv, G, S, D, Dv, dtype, device):
+    """q [B, Hkv*G, D] and caches [B, S, Hkv, D(v)] from numpy."""
+    rng = np.random.default_rng(seed)
+    mk = lambda *shape: torch.tensor(
+        rng.standard_normal(shape).astype(np.float32), device=device
+    ).to(dtype)
+    return mk(B, Hkv * G, D), mk(B, S, Hkv, D), mk(B, S, Hkv, Dv)
+
+
+@pytest.mark.parametrize("B,Hkv,G,S,D,Dv,dtype,length", [
+    (1, 1, 1, 512, 64, 64, torch.float32, 495),
+    (2, 4, 2, 1024, 128, 128, torch.float32, 1007),
+    (2, 2, 8, 2048, 64, 64, torch.bfloat16, 2031),
+    (1, 8, 5, 512, 128, 64, torch.float32, 495),     # uneven group, Dv != D
+    (8, 8, 4, 4096, 128, 128, torch.bfloat16, 4096),  # the serve shape
+    (3, 2, 4, 1000, 128, 128, torch.float32, 1),      # S % 512 != 0
+    (3, 2, 4, 1000, 128, 128, torch.bfloat16, 3),
+    (2, 8, 5, 777, 128, 128, torch.bfloat16, 777),
+])
+def test_flash_decode_equals_plain_version(cuda, B, Hkv, G, S, D, Dv,
+                                           dtype, length):
+    """K6 through ``flash_decode_op`` on the cache layout, length on the
+    device, against the plain version on the same CUDA inputs."""
+    q, k, v = kv_inputs(S + G, B, Hkv, G, S, D, Dv, dtype, cuda)
+    n = torch.tensor(length, dtype=torch.int32, device=cuda)
+    reset_launch_counts()
+    got = ops.flash_decode_op(q, k, v, n)
+    want = ref.flash_decode_ref(q.reshape(B, Hkv, G, D), k.transpose(1, 2),
+                                v.transpose(1, 2), length)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_decode"] == 1
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(got.float(), want.reshape(B, Hkv * G, Dv)
+                               .float(), rtol=tol, atol=tol)
+
+
+def test_flash_decode_checks_inputs(cuda):
+    q, k, v = kv_inputs(0, 1, 2, 2, 64, 64, 64, torch.float32, cuda)
+    qg, kt, vt = q.reshape(1, 2, 2, 64), k.transpose(1, 2), v.transpose(1, 2)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fd.flash_decode(qg.half(), kt.half(), vt.half(), 5)
+    with pytest.raises(ValueError, match="dtype"):
+        fd.flash_decode(qg, kt.bfloat16(), vt, 5)
+    with pytest.raises(ValueError, match="Dv in"):
+        fd.flash_decode(qg, kt, vt[..., :32], 5)
+    with pytest.raises(ValueError, match="is on"):
+        fd.flash_decode(qg, kt, vt, torch.tensor(5, dtype=torch.int32))
+
+
+def test_decode_on_card_matches_cpu(cuda):
+    """Reduced granite (2 layers, G=2) at f32: prefill + decode on the
+    card through K6 against the CPU's plain path from the same params,
+    logits within 1e-4 of their largest; one K6 launch per layer and
+    step."""
+    import dataclasses as dc
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_cache, init_model
+    from repro_torch.models.layers import tree_map
+    cfg = dc.replace(get_config("granite-3-8b").reduced(), num_kv_heads=2,
+                     dtype="float32")
+    params = init_model(torch.Generator().manual_seed(0), cfg, device="cpu")
+    card = tree_map(lambda t: t.to(cuda), params)
+    tokens = torch.tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 12)))
+    caches = {d: init_cache(cfg, 2, 40, cfg.dtype, device=d)
+              for d in ("cpu", cuda)}
+    reset_launch_counts()
+    for t in range(tokens.shape[1]):
+        outs = []
+        for dev, p in (("cpu", params), (cuda, card)):
+            idx = torch.tensor(t, dtype=torch.int32, device=dev)
+            lg, caches[dev] = decode_step(p, caches[dev],
+                                          tokens[:, t:t + 1].to(dev), idx,
+                                          cfg)
+            outs.append(lg.cpu())
+        scale = float(outs[0].abs().max())
+        assert float((outs[1] - outs[0]).abs().max()) <= 1e-4 * scale
+    assert LAUNCHES["flash_decode"] == cfg.num_layers * tokens.shape[1]
