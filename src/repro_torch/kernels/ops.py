@@ -191,18 +191,14 @@ def mixed_res_wire_aggregate(flat: torch.Tensor, weights: torch.Tensor,
 
 
 def flash_decode_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    length: Union[int, torch.Tensor], kv_block: int = 512
-                    ) -> torch.Tensor:
+                    length: Union[int, torch.Tensor]) -> torch.Tensor:
     """Single-token GQA decode attention.
 
     q: [B, H, D]; k/v: [B, S, Hkv, D(v)] (the KV cache's layout);
     length: int or one-int tensor — positions >= length are masked.
     Returns [B, H, Dv].  Head h reads kv head h // (H/Hkv).  The caches
-    go to K6 as transposed views, so nothing is copied.  ``kv_block`` is
-    the JAX kernel's KV tile; it is taken for the same signature and
-    does not change the result (K6 picks its own split of S, and the
-    plain version has none)."""
-    del kv_block
+    go to K6 as transposed views, so nothing is copied.  The JAX op's
+    ``kv_block`` tile is not taken: K6 picks its own split of S."""
     B, H, D = q.shape
     Hkv = k.shape[2]
     if H % Hkv:

@@ -10,9 +10,10 @@ device and is advanced there, and tokens stay on the device, so the
 loop never waits for the card until it ends.
 
 The JAX package keeps float32 masters and casts them at each use; the
-port casts them to the config's dtype once, when serving starts
-(:func:`cast_params`) — the same numbers, read once a token in the
-compute dtype instead of in float32.
+port's caller casts them to the config's dtype once, when serving starts
+(:func:`cast_params`, which frees the float32 masters) — the same
+numbers, read once a token in the compute dtype instead of in float32.
+:func:`greedy_generate` takes the cast params and checks their dtype.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import tree_map
+from repro_torch.models.layers import tree_leaves, tree_map
 from repro_torch.models.transformer import (decode_step, init_cache,
                                             torch_dtype)
 
@@ -51,14 +52,20 @@ def greedy_generate(params: dict, cfg: ModelConfig, prompts: torch.Tensor,
                     gen: int, max_len: Optional[int] = None) -> ServeResult:
     """prompts: [B, P] token ids on the params' device; ``gen`` >= 1
     tokens are generated into a cache of ``max_len`` (default P + gen)
-    positions."""
+    positions.  Floating params must be in ``cfg.dtype``
+    (:func:`cast_params`)."""
     B, P = prompts.shape
     max_len = max_len or P + gen
     if gen < 1 or max_len < P + gen - 1:
         raise ValueError(f"need gen >= 1 and max_len >= prompt + gen - 1, "
                          f"got gen={gen} max_len={max_len} prompt={P}")
+    dt = torch_dtype(cfg.dtype)
+    wrong = {str(t.dtype) for t in tree_leaves(params)
+             if t.is_floating_point() and t.dtype != dt}
+    if wrong:
+        raise ValueError(f"params hold {sorted(wrong)}, not {dt}: cast "
+                         f"them once with cast_params")
     dev = prompts.device
-    params = cast_params(params, cfg.dtype)
     cache = init_cache(cfg, B, max_len, cfg.dtype, device=dev)
     idx = torch.zeros((), dtype=torch.int32, device=dev)
     _sync(dev)

@@ -45,7 +45,7 @@ from repro_torch.models import (INPUT_SHAPES, ModelConfig, decode_step,
 from repro_torch.models import layers as tl
 from repro_torch.models.layers import tree_map
 from repro_torch.models.transformer import init_block
-from repro_torch.serve import greedy_generate
+from repro_torch.serve import cast_params, greedy_generate
 
 F32 = dict(rtol=1e-5, atol=1e-6)
 
@@ -330,6 +330,18 @@ def test_serve_cli_runs_on_the_cpu():
     res = cli.main(["--device", "cpu", "--reduced", "--batch", "2",
                     "--prompt-len", "4", "--gen", "3", "--max-len", "16"])
     assert tuple(res.tokens.shape) == (2, 3) and res.decode_steps == 2
+
+
+def test_serve_loop_takes_cast_params():
+    """The caller casts the float32 masters once; the loop refuses
+    params in another dtype than the config's."""
+    cfg = get_config("granite-3-8b").reduced()
+    params = init_model(torch.Generator().manual_seed(0), cfg, device="cpu")
+    prompts = torch.ones((1, 2), dtype=torch.long)
+    with pytest.raises(ValueError, match="cast_params"):
+        greedy_generate(params, cfg, prompts, 2)
+    res = greedy_generate(cast_params(params, cfg.dtype), cfg, prompts, 2)
+    assert tuple(res.tokens.shape) == (1, 2)
 
 
 # ------------------------------------------------- what is not ported
