@@ -17,12 +17,17 @@
    and one narrow two-round run through the kernels against the same
    run on the CPU's plain path; K6 (flash-decode attention) at the
    serve shape (B=8, 8 kv heads, G=4, D=128, S=4096) and edge shapes,
-   f32 within 1e-5 and bf16 within one bf16 ulp (``K6_TOL``), and a
-   narrow reduced granite-3-8b decode through K6 against the same
-   decode on the CPU;
+   f32 within 1e-5 and bf16 within one bf16 ulp (``K6_TOL``); K6
+   captured once in a CUDA graph and replayed at lengths 1, 3, 4079 and
+   4096 set in place on the card; two K6 calls bit for bit equal; one
+   profiled K6 call running one kernel and nothing else; and a narrow
+   reduced granite-3-8b decode through K6 against the same decode on
+   the CPU;
 4. times each kernel and its plain version with CUDA events, and K6
-   beside ``scaled_dot_product_attention`` at the serve shape and at
-   ``decode_32k``'s (B=128, S=32768, one layer's cache);
+   beside ``scaled_dot_product_attention`` at the serve shape (eager,
+   replayed from a CUDA graph, and by the profiler's device time; K6
+   also at length 4) and at ``decode_32k``'s (B=128, S=32768, one
+   layer's cache);
 5. on one set of full-width deltas from the card, holds the signplane,
    dense and packed aggregates against each other, and the card's
    signplane aggregate against the CPU's;
@@ -40,7 +45,8 @@
    then decodes at a nearly full cache (its first 4064 positions filled
    with random k/v), timing the steps and their device time by kernel,
    and holds one such step's logits through K6 against the same step
-   with K6's plain version in its place;
+   with K6's plain version in its place; then times decode at a short
+   context and at the nearly full cache in turns, three of each;
 8. prints one ``{"kernels": [...]}`` JSON line (K1–K6), and ends with
    ``{"ok": true, "device": {...}}``.
 
@@ -51,6 +57,7 @@ import dataclasses
 import json
 import math
 import pathlib
+import statistics
 import subprocess
 import sys
 import time
@@ -175,6 +182,55 @@ def time_ms(fn, iters):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def capture(fn, calls=1):
+    """(graph, the last call's output): ``calls`` calls of ``fn``
+    captured back to back in one CUDA graph, after a warm-up call on a
+    side stream."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            out = fn()
+    return graph, out
+
+
+def graph_ms(fn, calls, reps=5):
+    """Device time per call of ``fn``, replayed from one CUDA graph that
+    holds ``calls`` calls (no host dispatch between them), timed with
+    CUDA events over ``reps`` replays."""
+    graph, _ = capture(fn, calls)
+    return time_ms(graph.replay, reps) / calls
+
+
+def device_kernels(fn, calls):
+    """What ``calls`` calls of ``fn`` run on the card, by
+    ``torch.profiler``: {kernel, memset or copy name: (launches a call,
+    device us a launch)}."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: (e.count / calls, e.self_device_time_total / e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.count}
+
+
+def device_us(kernels):
+    """Summed device us a call of a :func:`device_kernels` result."""
+    return sum(n * us for n, us in kernels.values())
 
 
 def check_kernels(dev, U, d, lam, b, with_acc):
@@ -489,6 +545,52 @@ def k6_within(got, want, dtype):
     return float(diff.max()), float((diff / bound).max())
 
 
+def check_k6_graph_and_repeat(dev):
+    """At the serve shape (bf16): one ``flash_decode_op`` call captured in
+    a CUDA graph, replayed after the device ``length`` is changed in place
+    to 1, 3, 4079 and 4096, each replay held to the plain version within
+    K6_TOL (the split is sized on the card, so one capture serves every
+    length); then two eager calls at full length, bit for bit equal; then
+    one profiled call, which must run K6 alone: one kernel, no memset, no
+    fill, no copy.  Returns the largest share of the bound."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    sv = K6_SERVE
+    B, Hkv, G, S, D, Dv = (sv[k] for k in ("B", "Hkv", "G", "S", "D", "Dv"))
+    q, k, v = kv_inputs(B, Hkv, G, S, D, Dv, torch.bfloat16, seed=11,
+                        device=dev)
+    n = torch.tensor(S, dtype=torch.int32, device=dev)
+    graph, out = capture(lambda: ops.flash_decode_op(q, k, v, n))
+    shares = {}
+    for length in (1, 3, 4079, 4096):
+        n.fill_(length)
+        graph.replay()
+        want = ref.flash_decode_ref(q.reshape(B, Hkv, G, D),
+                                    k.transpose(1, 2), v.transpose(1, 2),
+                                    length).reshape(B, Hkv * G, Dv)
+        torch.cuda.synchronize()
+        shares[length] = k6_within(out, want, "bfloat16")[1]
+    del graph
+    n.fill_(S)
+    first, second = ops.flash_decode_op(q, k, v, n), \
+        ops.flash_decode_op(q, k, v, n)
+    same = torch.equal(first.view(torch.int16), second.view(torch.int16))
+    ran = device_kernels(lambda: ops.flash_decode_op(q, k, v, n), 1)
+    print(f"K6 graph replays at the serve shape, length changed in place "
+          f"(share of the bound by length) {shares}; two calls bit-identical "
+          f"{same}; one profiled call runs {ran}")
+    if max(shares.values()) > 1.0:
+        raise AssertionError(f"a graph replay of K6 disagrees with its plain "
+                             f"version: {shares}")
+    if not same:
+        raise AssertionError("two K6 calls on the same inputs differ")
+    if len(ran) != 1 or list(ran.values())[0][0] != 1 \
+            or "k6_flash_decode" not in list(ran)[0]:
+        raise AssertionError(f"one K6 call ran {ran}, not one K6 kernel")
+    return max(shares.values())
+
+
 def narrow_decode_check(dev):
     """Reduced granite-3-8b regrouped to 2 kv heads (G=2), f32: 12
     tokens of decode on the card through K6 and on the CPU through the
@@ -543,14 +645,19 @@ def k6_work(B, Hkv, G, S, D, Dv, dtype, length):
     return by, 2 * B * Hkv * G * L * (D + Dv)
 
 
-def time_flash_decode(dev, shape, dtype, card, iters):
+def time_flash_decode(dev, shape, dtype, card, iters, short=None):
     """K6, its plain version and one ``scaled_dot_product_attention``
     call (flash backend, ``enable_gqa``) on the same inputs at full
-    length; returns the timing row."""
+    length: CUDA events over ``iters`` eager calls (``ms``,
+    ``library_ms``: the host's dispatch included), the same calls
+    replayed from one CUDA graph (``graph_ms``, ``library_graph_ms``)
+    and the kernels' own device time by the profiler
+    (``kernel_us``, ``library_kernel_us``); with ``short``, K6 also at
+    that length of the same cache.  Returns the timing row."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import flash_decode as fd, ops, ref
 
     B, Hkv, G, S, D, Dv = (shape[k] for k in ("B", "Hkv", "G", "S", "D",
                                                "Dv"))
@@ -559,6 +666,10 @@ def time_flash_decode(dev, shape, dtype, card, iters):
     n = torch.tensor(S, dtype=torch.int32, device=dev)
     kt, vt = k.transpose(1, 2), v.transpose(1, 2)       # views, no copy
     got = ops.flash_decode_op(q, k, v, n)
+    occ = fd.occupancy(dt, B, Hkv, G, D, Dv, S)
+
+    def kernel():
+        return ops.flash_decode_op(q, k, v, n)
 
     def plain():
         return ref.flash_decode_ref(q.reshape(B, Hkv, G, D), kt, vt, S)
@@ -568,8 +679,20 @@ def time_flash_decode(dev, shape, dtype, card, iters):
             return F.scaled_dot_product_attention(
                 q[:, :, None], kt, vt, enable_gqa=True)
 
-    ms = time_ms(lambda: ops.flash_decode_op(q, k, v, n), iters)
+    ms = time_ms(kernel, iters)
     lib_ms = time_ms(library, iters)
+    g_ms, lib_g_ms = graph_ms(kernel, iters), graph_ms(library, iters)
+    k_us = device_us(device_kernels(kernel, iters))
+    lib_kernels = device_kernels(library, iters)
+    lib_us = device_us(lib_kernels)
+    row = {}
+    if short is not None:
+        n_short = torch.tensor(short, dtype=torch.int32, device=dev)
+        short_call = lambda: ops.flash_decode_op(q, k, v, n_short)
+        row = {"short_length": short,
+               "short_graph_ms": graph_ms(short_call, iters),
+               "short_kernel_us": device_us(device_kernels(short_call,
+                                                           iters))}
     lib_err = float((library()[:, :, 0].float() - got.float()).abs().max())
     torch.cuda.reset_peak_memory_stats()
     plain_ms = time_ms(plain, 3)
@@ -582,19 +705,32 @@ def time_flash_decode(dev, shape, dtype, card, iters):
         else peaks(card.split(",")[0])[1]
     by, ops_ = k6_work(B, Hkv, G, S, D, Dv, dtype, S)
     t_bytes, t_ops = by / mem_rate * 1e3, ops_ / op_rate * 1e3
+    bound = max(t_bytes, t_ops)
     print(f"K6 at B={B} Hkv={Hkv} G={G} S={S} D={D} Dv={Dv} {dtype}: kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa (flash, gqa) "
-          f"{lib_ms:.4f} ms, bound {max(t_bytes, t_ops) * 1e3:.1f} us "
-          f"({by / 1e6:.1f} MB); |K6 - plain| {err:.3e} ({share:.3f} of "
-          f"the bound), |K6 - sdpa| {lib_err:.3e}; peak device memory with "
-          f"the plain version {plain_peak:.2f} GiB on {card}")
+          f"{ms:.4f} ms eager / {g_ms:.4f} ms in a graph / {k_us:.2f} us on "
+          f"the device; sdpa (flash, gqa) {lib_ms:.4f} / {lib_g_ms:.4f} ms / "
+          f"{lib_us:.2f} us ({len(lib_kernels)} kernels); plain "
+          f"{plain_ms:.4f} ms; bound {bound * 1e3:.1f} us ({by / 1e6:.1f} "
+          f"MB), K6 at {bound / (k_us / 1e3):.3f} of it on the device; "
+          f"{occ}; |K6 - plain| {err:.3e} ({share:.3f} of the bound), "
+          f"|K6 - sdpa| {lib_err:.3e}; peak device memory with the plain "
+          f"version {plain_peak:.2f} GiB on {card}")
+    if row:
+        print(f"K6 at length {short} of the same cache: "
+              f"{row['short_graph_ms'] * 1e3:.2f} us a call in a graph, "
+              f"{row['short_kernel_us']:.2f} us on the device")
     if share > 1.0:
         raise AssertionError(f"K6 disagrees with its plain version at the "
                              f"timed shape: {err}, {share:.2f} of the bound")
-    return {"ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": by, "library_ms": lib_ms, "max_abs_err": err}
+    if occ["nsplit"] > 1 and B * Hkv > occ["clusters"]:
+        raise AssertionError(f"K6's grid does not run in one wave: {occ}")
+    return dict({"ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": bound,
+                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                 "bytes": by, "library_ms": lib_ms, "max_abs_err": err,
+                 "graph_ms": g_ms, "library_graph_ms": lib_g_ms,
+                 "kernel_us": k_us, "library_kernel_us": lib_us,
+                 "occupancy": occ}, **row)
 
 
 def decode_breakdown(params, cfg, cache, idx, tok, ms_step, steps=4):
@@ -731,6 +867,48 @@ def serve_long_context(params, cfg, prompts, steps=32):
     torch.cuda.empty_cache()
 
 
+def alternate_lengths(params, cfg, prompts, steps=16, turns=3):
+    """Host-clock ms a decode step at a short context (positions 16 on)
+    and at a nearly full cache (4032 on), in turns — short, full, short,
+    ... — ``turns`` of each in one process, the same work a step at both
+    (a fixed token, no sampling); prints every turn and the medians."""
+    import torch
+    from repro_torch.models import decode_step, init_cache
+
+    dev = prompts.device
+    B, L = prompts.shape[0], SERVE["max_len"]
+    g = torch.Generator(device=dev).manual_seed(3)
+    caches = {}
+    for name, fill in (("short", 16), ("full", L - 64)):
+        cache = init_cache(cfg, B, L, cfg.dtype, device=dev)
+        for kv in cache["A"]["attn"].values():   # [layers, B, S, Hkv, D]
+            kv[:, :, :fill].normal_(generator=g)
+        caches[name] = (cache, fill)
+    tok = prompts[:, :1]
+    times = {"short": [], "full": []}
+    with torch.no_grad():
+        for _ in range(turns):
+            for name, (cache, fill) in caches.items():
+                idx = torch.full((), fill, dtype=torch.int32, device=dev)
+                decode_step(params, cache, tok, idx, cfg)     # warm
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(steps):
+                    idx += 1
+                    decode_step(params, cache, tok, idx, cfg)
+                torch.cuda.synchronize()
+                times[name].append(1e3 * (time.perf_counter() - t0) / steps)
+    med = {name: statistics.median(v) for name, v in times.items()}
+    print(f"decode in turns ({turns} of each, {steps} steps a turn, B={B}): "
+          f"ms/step short {[round(x, 3) for x in times['short']]}, full "
+          f"{[round(x, 3) for x in times['full']]}; medians short "
+          f"{med['short']:.3f}, full {med['full']:.3f} (full - short "
+          f"{med['full'] - med['short']:.3f} ms)")
+    del caches
+    torch.cuda.empty_cache()
+    return med
+
+
 def serve_full_width(dev):
     """granite-3-8b at full width (random weights from a seed, cast to
     bf16 once): SERVE's prompts through ``greedy_generate`` with the
@@ -827,6 +1005,7 @@ def serve_full_width(dev):
     del cache, lg, dec, fwd
     torch.cuda.empty_cache()
     serve_long_context(params, cfg, prompts)
+    alternate_lengths(params, cfg, prompts)
     del params
     torch.cuda.empty_cache()
     return counts["flash_decode"]
@@ -928,6 +1107,15 @@ def main():
           f"G in {{1,4,5,8}}; S in {{512,777,1000,2048,4096}}, S % 512 != 0 "
           f"included; length 1, 3, S-17, S) within tolerance; (max abs "
           f"err, largest share of the bound) {worst}")
+    odd = {}
+    for dtype in ("float32", "bfloat16"):       # D % 16 == 8: a half k-step
+        for length in (1, 33, 283, 300):
+            e, share = check_flash_decode(dev, 2, 2, 3, 300, 72, 64, dtype,
+                                          length)
+            odd[dtype] = max(odd.get(dtype, 0.0), share)
+    print(f"K6 at D=72 (G=3, S=300, Dv=64; length 1, 33, 283, 300): largest "
+          f"share of the bound {odd}")
+    check_k6_graph_and_repeat(dev)
     narrow_decode_check(dev)
 
     phase("timing")
@@ -980,7 +1168,8 @@ def main():
     k6_row = dict({"name": "K6 flash_decode", "route": "cuda",
                    "source": SOURCES["K6"], "replaces": REPLACES["K6"],
                    "launches": 0},
-                  **time_flash_decode(dev, K6_SERVE, "bfloat16", card, 50))
+                  **time_flash_decode(dev, K6_SERVE, "bfloat16", card, 50,
+                                      short=4))
     k6_row["max_abs_err"] = max(k6_row["max_abs_err"], errs["K6"])
     k6_row["decode_32k"] = time_flash_decode(dev, K6_DECODE_32K, "bfloat16",
                                              card, 10)

@@ -146,17 +146,49 @@ def test_op_reads_caches_through_views(monkeypatch):
     assert tuple(seen["k"].shape) == (1, 2, 128, 64)
 
 
-@pytest.mark.parametrize("B,Hkv,S,chunk,nsplit", [
-    (8, 8, 4096, 256, 16),       # the serve shape: 1024 blocks
-    (128, 8, 32768, 16384, 2),   # decode_32k: B*Hkv already fills the card
-    (1, 1, 8, 128, 1),
-    (2, 4, 1000, 128, 8),
+def H100_CLUSTERS(n):
+    """Clusters of n blocks resident at once, as the card reports for K6
+    (one block on each of 132 SMs)."""
+    return 132 // n
+
+
+@pytest.mark.parametrize("B,Hkv,S", [
+    (8, 8, 4096),       # the serve shape: 2 splits, 128 blocks
+    (128, 8, 32768),    # decode_32k: B*Hkv already fills the card
+    (2, 8, 777),
+    (2, 4, 1000),
 ])
-def test_split_plan(B, Hkv, S, chunk, nsplit):
-    """S is cut into chunks of whole 128-position sweeps that cover it."""
-    assert fd.split_plan(B, Hkv, S) == (chunk, nsplit)
-    assert chunk % (fd.WARPS * fd.TILE) == 0
-    assert (nsplit - 1) * chunk < S <= nsplit * chunk
+@pytest.mark.parametrize("length_of", ["1", "3", "tile", "S-17", "S"])
+def test_split_ranges(B, Hkv, S, length_of):
+    """The range arithmetic each block does on the device from
+    ``*length``: the active splits tile [0, length) exactly in whole
+    tiles, none empty, one split below a tile; the grid, fixed by
+    shapes alone, is whole clusters of at most CLUSTER_MAX blocks."""
+    length = {"1": 1, "3": 3, "tile": fd.TILE, "S-17": S - 17,
+              "S": S}[length_of]
+    nsplit = fd.split_count(B, Hkv, S, H100_CLUSTERS)
+    assert 1 <= nsplit <= fd.CLUSTER_MAX
+    assert nsplit == 1 or B * Hkv <= H100_CLUSTERS(nsplit)   # one wave
+    assert (nsplit * Hkv * B) % nsplit == 0
+    assert (nsplit - 1) * fd.MIN_CHUNK < S      # every split can have work
+    n_eff, ranges = fd.split_ranges(length, S, nsplit)
+    assert len(ranges) == nsplit and 1 <= n_eff <= nsplit
+    if length < fd.TILE:
+        assert n_eff == 1
+    active = ranges[:n_eff]
+    assert all(s < e for s, e in active)
+    assert all(s % fd.TILE == 0 for s, _ in active)
+    assert active[0][0] == 0 and active[-1][1] == length
+    assert all(e1 == s2 for (_, e1), (s2, _) in zip(active, active[1:]))
+    assert all(s == e for s, e in ranges[n_eff:])
+    tiles = [-(-(e - s) // fd.TILE) for s, e in active]
+    assert max(tiles) - min(tiles) <= 1          # shared evenly
+    if length == S and length >= nsplit * fd.MIN_CHUNK:
+        assert n_eff == nsplit
+    if (B, Hkv, S) == (8, 8, 4096):
+        assert nsplit == 2
+    if (B, Hkv, S) == (128, 8, 32768):
+        assert nsplit == 1
 
 
 def test_wrapper_rejects_bad_shapes():

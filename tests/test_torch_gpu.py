@@ -175,6 +175,13 @@ def kv_inputs(seed, B, Hkv, G, S, D, Dv, dtype, device):
     return mk(B, Hkv * G, D), mk(B, S, Hkv, D), mk(B, S, Hkv, Dv)
 
 
+def bf16_bound(want):
+    """(atol, rtol) for K6 in bf16 (chip_smoke.K6_TOL): both round the
+    same f32 result to bf16, so one bf16 ulp apart at most (<= 2^-7
+    |want|), and 2^-8 max |want| for outputs near 0."""
+    return 2.0 ** -8 * float(want.abs().max()), 1e-2
+
+
 @pytest.mark.parametrize("B,Hkv,G,S,D,Dv,dtype,length", [
     (1, 1, 1, 512, 64, 64, torch.float32, 495),
     (2, 4, 2, 1024, 128, 128, torch.float32, 1007),
@@ -199,12 +206,46 @@ def test_flash_decode_equals_plain_version(cuda, B, Hkv, G, S, D, Dv,
     assert LAUNCHES["flash_decode"] == 1
     want = want.reshape(B, Hkv * G, Dv).float()
     if dtype == torch.bfloat16:
-        # both round the same f32 result to bf16: one bf16 ulp apart at
-        # most (<= 2^-7 |want|), and 2^-8 max |want| for outputs near 0
-        atol, rtol = 2.0 ** -8 * float(want.abs().max()), 1e-2
+        atol, rtol = bf16_bound(want)
     else:
         atol = rtol = 1e-5
     torch.testing.assert_close(got.float(), want, rtol=rtol, atol=atol)
+
+
+def test_flash_decode_graph_replays_at_any_length(cuda):
+    """K6 at the serve shape captured once in a CUDA graph, replayed after
+    the device ``length`` is set in place to 1, 3, 4079 and 4096: the
+    split is sized on the card, so each replay equals the plain version
+    within one bf16 ulp."""
+    B, Hkv, G, S, D = 8, 8, 4, 4096, 128
+    q, k, v = kv_inputs(5, B, Hkv, G, S, D, D, torch.bfloat16, cuda)
+    n = torch.tensor(S, dtype=torch.int32, device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.flash_decode_op(q, k, v, n)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.flash_decode_op(q, k, v, n)
+    for length in (1, 3, 4079, 4096):
+        n.fill_(length)
+        graph.replay()
+        want = ref.flash_decode_ref(q.reshape(B, Hkv, G, D),
+                                    k.transpose(1, 2), v.transpose(1, 2),
+                                    length).reshape(B, Hkv * G, D).float()
+        atol, rtol = bf16_bound(want)
+        torch.testing.assert_close(out.float(), want, rtol=rtol, atol=atol)
+
+
+def test_flash_decode_is_deterministic(cuda):
+    """Two K6 calls at the serve shape give the same bits: the splits
+    merge in a fixed order."""
+    q, k, v = kv_inputs(6, 8, 8, 4, 4096, 128, 128, torch.bfloat16, cuda)
+    n = torch.tensor(4096, dtype=torch.int32, device=cuda)
+    first = ops.flash_decode_op(q, k, v, n)
+    second = ops.flash_decode_op(q, k, v, n)
+    assert torch.equal(first.view(torch.int16), second.view(torch.int16))
 
 
 def test_flash_decode_checks_inputs(cuda):
