@@ -13,21 +13,26 @@
 3. holds each kernel against its plain PyTorch version on the card, at
    the main path's shapes (K1–K3: U=40 users, W=3840 rows, d=462,410,
    b=10, lambda=0.2; K4–K5: G=40 planes of 3840 rows) and at edge
-   shapes — planes, headers, sign words and the reduces bit for bit —
-   and one narrow two-round run through the kernels against the same
-   run on the CPU's plain path; K6 (flash-decode attention) at the
-   serve shape (B=8, 8 kv heads, G=4, D=128, S=4096) and edge shapes,
-   f32 within 1e-5 and bf16 within one bf16 ulp (``K6_TOL``); K6
+   shapes — planes, headers, sign words and the reduces bit for bit;
+   K1–K3 also at special values (NaN, +-inf, subnormals, -0.0, an
+   infinite and a subnormal max) and at d=16,777,000, K2 on both rules;
+   K1 and K2 replayed from one CUDA graph; the cutoff search of K1 and
+   K2 against its numpy twin — and one narrow two-round run through the
+   kernels against the same run on the CPU's plain path; K6
+   (flash-decode attention) at the serve shape (B=8, 8 kv heads, G=4,
+   D=128, S=4096) and edge shapes, f32 within 1e-5 and bf16 within one
+   bf16 ulp (``K6_TOL``); K6
    captured once in a CUDA graph and replayed at lengths 1, 3, 4079 and
    4096 set in place on the card; two K6 calls bit for bit equal; one
    profiled K6 call running one kernel and nothing else; and a narrow
    reduced granite-3-8b decode through K6 against the same decode on
    the CPU;
-4. times each kernel and its plain version with CUDA events, and K6
-   beside ``scaled_dot_product_attention`` at the serve shape (eager,
-   replayed from a CUDA graph, and by the profiler's device time; K6
-   also at length 4) and at ``decode_32k``'s (B=128, S=32768, one
-   layer's cache);
+4. times each kernel (eager with CUDA events, replayed from a CUDA
+   graph, and by the profiler's device time) and its plain version; the
+   packed encode as ``mixed_res_encode`` runs it, by device time; and K6
+   beside ``scaled_dot_product_attention`` at the serve shape (the same
+   three ways; K6 also at length 4) and at ``decode_32k``'s (B=128,
+   S=32768, one layer's cache);
 5. on one set of full-width deltas from the card, holds the signplane,
    dense and packed aggregates against each other, and the card's
    signplane aggregate against the CPU's;
@@ -233,13 +238,31 @@ def device_us(kernels):
     return sum(n * us for n, us in kernels.values())
 
 
-def check_kernels(dev, U, d, lam, b, with_acc):
-    """Every kernel against its plain version on one input; returns the
-    largest error of each (0.0 for bit-identical outputs)."""
+def special_values(x):
+    """Plant special values in deltas ``x`` [U, d]: user 0 gets NaN,
+    +-inf, +-subnormals and -0.0; user 2 +-inf (an infinite max, where
+    K1 and K2's cutoff takes its own branch); user 3 only subnormals (a
+    subnormal max).  User 1 stays all zero."""
+    import torch
+    nan, inf = float("nan"), float("inf")
+    x[0, :6] = torch.tensor([nan, inf, -inf, 1.4e-45, -1.4e-45, -0.0])
+    if x.shape[0] > 3:
+        x[2, 5:7] = torch.tensor([inf, -inf])
+        x[3] *= 1e-39
+    return x
+
+
+def check_kernels(dev, U, d, lam, b, with_acc, specials=False):
+    """Every kernel against its plain version on one input (K2 on both
+    rules); returns the largest error of each (0.0 for bit-identical
+    outputs)."""
     import torch
     from repro_torch.kernels import WirePath, mixed_res as mr, ops, ref
 
-    x3 = ops.wire_view(deltas(U, d, seed=d + b, device=dev)).contiguous()
+    x = deltas(U, d, seed=d + b, device=dev)
+    if specials:
+        special_values(x)
+    x3 = ops.wire_view(x).contiguous()
     head_k = mr.mixed_res_reduce(x3, lam, d)
     head_p = ref.mixed_res_reduce_ref(x3, lam, d)
     wire_k = ops.mixed_res_encode(x3.reshape(U, -1)[:, :d], lam, b,
@@ -247,6 +270,8 @@ def check_kernels(dev, U, d, lam, b, with_acc):
     head = wire_k.head
     planes_k = mr.mixed_res_emit(x3, head, b, d)
     planes_p = ref.mixed_res_emit_ref(x3, head, b, d)
+    planes_k += mr.mixed_res_emit(x3, head, b, d, anchored=True)
+    planes_p += ref.mixed_res_emit_ref(x3, head, b, d, anchored=True)
     w = torch.rand(U, generator=torch.Generator(device=dev).manual_seed(b),
                    device=dev) / U
     acc = torch.randn(x3.shape[1], 128, device=dev) if with_acc else None
@@ -262,8 +287,77 @@ def check_kernels(dev, U, d, lam, b, with_acc):
              "K3": bitwise_equal(red_k, red_p)}
     if not all(exact.values()):
         raise AssertionError(f"kernel != plain at U={U} d={d} lam={lam} "
-                             f"b={b} acc={with_acc}: errors {errs}")
+                             f"b={b} acc={with_acc} specials={specials}: "
+                             f"errors {errs}")
     return errs, (x3, head, wire_k, w)
+
+
+def check_wire_graph_and_cutoffs(dev, x3, head, lam, d, b):
+    """K1 and K2 at the main shape captured once in a CUDA graph and
+    replayed on new deltas copied in place, each replay bit for bit
+    equal to the plain versions; two eager calls bit-identical; then
+    the cutoff search K1 and K2 run, on 4000 (inf, lam) pairs, against
+    its numpy twin ``ref.threshold_cutoff``."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import mixed_res as mr, ops, ref
+
+    U = x3.shape[0]
+    xg = x3.clone()
+
+    def both():
+        return (mr.mixed_res_reduce(xg, lam, d),
+                *mr.mixed_res_emit(xg, head, b, d))
+
+    graph, out = capture(both)
+    for seed in (21, 22):
+        xg.copy_(ops.wire_view(deltas(U, d, seed=seed, device=dev)))
+        graph.replay()
+        want = (ref.mixed_res_reduce_ref(xg, lam, d),
+                *ref.mixed_res_emit_ref(xg, head, b, d))
+        torch.cuda.synchronize()
+        if not all(bitwise_equal(k, p) for k, p in zip(out, want)):
+            raise AssertionError("a graph replay of K1 and K2 disagrees "
+                                 "with the plain versions")
+    del graph
+    first, second = both(), both()
+    same = all(bitwise_equal(a, c) for a, c in zip(first, second))
+    rng = np.random.default_rng(0)
+    inf = (10.0 ** rng.uniform(-45, 38.5, 4000)).astype(np.float32)
+    inf[:6] = [0.0, np.nan, np.inf, 1.4e-45, 3e38, np.inf]
+    lams = np.array([0.0, 0.2, 1.0, 1e-30, 0.999999, -1.0, np.nan],
+                    np.float32)[rng.integers(0, 7, 4000)]
+    got = mr.cutoffs(torch.tensor(inf, device=dev),
+                     torch.tensor(lams, device=dev)).cpu()
+    cut_ok = bitwise_equal(got, mr.cutoffs(torch.tensor(inf),
+                                           torch.tensor(lams)))
+    print(f"K1 and K2 replayed from one CUDA graph on new deltas: bit-exact; "
+          f"two eager calls bit-identical {same}; the cutoff search on the "
+          f"card equals its numpy twin on 4000 (inf, lam) pairs {cut_ok}")
+    if not (same and cut_ok):
+        raise AssertionError("K1/K2 repeat or the cutoff search disagrees")
+
+
+def time_encode(x3, lam, d, b, card, bound_ms, calls=20):
+    """Device time by the profiler of the packed encode as
+    ``ops.mixed_res_encode`` runs it on the main deltas (the pad to
+    [U, W, 128] rows, K1, the torch epilogue, K2), and of the pad
+    alone."""
+    from repro_torch.kernels import ops
+
+    U = x3.shape[0]
+    flat = x3.reshape(U, -1)[:, :d].contiguous()
+    enc = device_kernels(lambda: ops.mixed_res_encode(flat, lam, b), calls)
+    pad = device_us(device_kernels(lambda: ops.wire_view(flat).contiguous(),
+                                   calls))
+    total = device_us(enc)
+    by_name = [(k.replace("(anonymous namespace)::", "")
+                .replace("void ", "").split("(")[0][:48], round(n * us, 2))
+               for k, (n, us) in enc.items()]
+    print(f"encode (mixed_res_encode, U={U}, d={d}, b={b}): {total:.2f} us "
+          f"on the device; the pad to rows alone {pad:.2f} us, so K1 + "
+          f"epilogue + K2 {total - pad:.2f} us against a bound of "
+          f"{bound_ms * 1e3:.1f} us; by kernel {by_name} on {card}")
 
 
 def check_sign_kernels(dev, G, d, edges):
@@ -1065,7 +1159,21 @@ def main():
                 n_edge += 1
     print(f"K1-K3 edge shapes: {n_edge} cases (W=29 masked, W=512 with "
           "d % 128 != 0, an all-zero user, b in {2,4,8,10,16}, "
-          "lam in {0,0.2,1}, with and without acc) bit-exact")
+          "lam in {0,0.2,1}, with and without acc; K2 on both rules) "
+          "bit-exact")
+    n_edge = 0
+    for de, ue in ((3610, 5), (65500, 5), (16_777_000, 2)):
+        for le in (0.0, 0.2, 1.0):
+            for be in ((4, 10) if ue > 2 else (10,)):
+                check_kernels(dev, ue, de, le, be, with_acc=False,
+                              specials=True)
+                n_edge += 1
+    print(f"K1-K3 special values: {n_edge} cases (NaN, +-inf, "
+          "+-subnormals, -0.0, an infinite max, a subnormal max, an "
+          "all-zero user; W=29, W=512 and U=2 at d=16,777,000, most of "
+          "each row beyond K1's staged tiles; lam in {0,0.2,1}; K2 on "
+          "both rules) bit-exact")
+    check_wire_graph_and_cutoffs(dev, *main_inputs[:2], lam, d, b)
     sign_errs, sign_inputs = check_sign_kernels(dev, U, d, edges=False)
     errs.update(sign_errs)
     print(f"K4-K5 main shapes G={U} rows={sign_inputs[1].shape[1]} d={d}: "
@@ -1150,6 +1258,8 @@ def main():
     rows_json = []
     for kid, (kern, plain) in timed.items():
         ms = time_ms(kern, 50)
+        g_ms = graph_ms(kern, 50)
+        k_us = device_us(device_kernels(kern, 50))
         plain_ms = time_ms(plain, 5)
         by, ops_ = work[kid]
         t_bytes, t_ops = by / mem_rate * 1e3, ops_ / f32_rate * 1e3
@@ -1160,10 +1270,14 @@ def main():
             "kernel_ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": by, "library_ms": None})
-        print(f"{kid}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {max(t_bytes, t_ops) * 1e3:.1f} us "
-              f"({by / 1e6:.2f} MB) on {card}")
+            "bytes": by, "library_ms": None, "graph_ms": g_ms,
+            "kernel_us": k_us})
+        print(f"{kid}: kernel {k_us:.2f} us on the device / {g_ms * 1e3:.2f} "
+              f"us in a graph / {ms * 1e3:.2f} us eager, plain "
+              f"{plain_ms:.4f} ms, bound {max(t_bytes, t_ops) * 1e3:.1f} us "
+              f"({by / 1e6:.2f} MB), kernel at "
+              f"{max(t_bytes, t_ops) * 1e3 / k_us:.3f} of it on {card}")
+    time_encode(x3, lam, d, b, card, work["K2"][0] / mem_rate * 1e3)
     del x3, head, wire, w, main_inputs, rows, words, scales, sign_inputs
     k6_row = dict({"name": "K6 flash_decode", "route": "cuda",
                    "source": SOURCES["K6"], "replaces": REPLACES["K6"],
@@ -1192,7 +1306,7 @@ def main():
     launches = {}
     phase(f"main path: {ROUNDS} rounds of paper-table3, packed wire")
     counts, state = drive(engines["packed"], ROUNDS, dict(
-        none, mixed_res_reduce=2, mixed_res_emit=1,
+        none, mixed_res_reduce=1, mixed_res_emit=1,
         mixed_res_dequant_reduce=1), "packed")
     launches.update({k: counts[k] for k in ("mixed_res_reduce",
                                             "mixed_res_emit",

@@ -17,8 +17,8 @@ import torch
 
 from . import build as _build
 
-# CUDA launches per kernel (K1 is two launches: max, then threshold);
-# a wrapper counts here where it launches its kernel, and nowhere else
+# CUDA launches per kernel; a wrapper counts here where it launches its
+# kernel, and nowhere else
 LAUNCHES: Dict[str, int] = {"mixed_res_reduce": 0, "mixed_res_emit": 0,
                             "mixed_res_dequant_reduce": 0, "signpack": 0,
                             "sign_dequant_reduce": 0, "flash_decode": 0}

@@ -3,7 +3,10 @@ for Hopper (``csrc/mixed_res.cu``), and their wrappers.
 
 * K1 :func:`mixed_res_reduce` — pass A: per-user ``||x||_inf``, then the
   threshold-masked min ``dw_q`` and the high-resolution count ``dbar``
-  (replaces ``repro/kernels/mixed_res.py`` ``mixed_res_reduce``);
+  (replaces ``repro/kernels/mixed_res.py`` ``mixed_res_reduce``); one
+  thread-block cluster a user stages the user's row in shared memory,
+  so x is read from device memory once (:func:`reduce_config`,
+  :func:`rank_rows`);
 * K2 :func:`mixed_res_emit` — pass B: sign, hi and b-bit code planes
   (replaces ``mixed_res_emit``);
 * K3 :func:`mixed_res_dequant_reduce` — fused decode of G users' planes
@@ -14,14 +17,19 @@ rows; bit j of packed word c is element ``32c + j``, 1 meaning
 ``x > 0`` in the sign plane; the code plane holds ``32 // bw`` codes a
 word, slot k at bit ``k * bw``, where ``bw`` is the storage width.
 
+K1 and K2 decide the threshold rule ``|x| / safe_inf >= lam`` without a
+division, by a per-user cutoff (``ref.threshold_cutoff`` is the plain
+twin of the search they run; :func:`cutoffs` runs it on the card).
+
 A wrapper given CPU tensors runs the plain version in ``ref.py``; given
 CUDA tensors it launches its kernel on the current stream or raises.
 Each counts its kernel launches in :data:`LAUNCHES`.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
-from typing import Optional
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,6 +43,16 @@ H_INF, H_DWQ, H_STEP, H_DBAR, H_LAM = 0, 1, 2, 3, 4
 HEADER_LANES = 8
 
 CODE_STORE_WIDTHS = (2, 4, 8, 16)
+
+# K1: a user's rows go to the ranks of its cluster in whole tiles of 16
+# rows (8 KB); a block stages at most K1_STAGE_TILES of them in shared
+# memory (56 KB, so three blocks share an SM) and streams the rest
+K1_TILE_ROWS = 16
+K1_CLUSTER_SIZES = (16, 8, 4, 2, 1)
+K1_STAGE_TILES = 7
+# the kernels do their row arithmetic in 32 bits: d < 2**24 pads to at
+# most 2**17 rows
+MAX_ROWS = 2 ** 17
 
 
 def code_width(b: int) -> int:
@@ -52,9 +70,11 @@ def code_words_per_row(b: int) -> int:
 
 # ------------------------------------------------------------ loading
 _SIGNATURES = (
-    ("mr_reduce", (_l.P, _l.P, _l.I, _l.LL, _l.LL, _l.F, _l.P)),
-    ("mr_emit", (_l.P, _l.P, _l.P, _l.P, _l.P, _l.I, _l.LL, _l.LL, _l.I,
+    ("mr_reduce", (_l.P, _l.P, _l.I, _l.I, _l.I, _l.F, _l.I, _l.I, _l.P)),
+    ("mr_reduce_occupancy", (_l.I, _l.I, _l.P, _l.P)),
+    ("mr_emit", (_l.P, _l.P, _l.P, _l.P, _l.P, _l.I, _l.I, _l.I, _l.I,
                  _l.I, _l.P)),
+    ("mr_cutoffs", (_l.P, _l.P, _l.P, _l.I, _l.P)),
     ("mr_dequant_reduce", (_l.P, _l.P, _l.P, _l.P, _l.P, _l.P, _l.P, _l.I,
                            _l.LL, _l.I, _l.P)),
 )
@@ -86,25 +106,88 @@ def _check_rows(x: torch.Tensor, d_valid: int):
     return U, W
 
 
+def _check_kernel_rows(x: torch.Tensor, U: int, W: int) -> None:
+    _l.check(x, "x", torch.float32, (U, W, 128), x.device)
+    if x.data_ptr() % 16:
+        raise ValueError("x must be 16-byte aligned (the kernels load "
+                         "float4)")
+    if W > MAX_ROWS:
+        raise ValueError(f"the kernels take at most {MAX_ROWS} rows a "
+                         f"user, got W={W}")
+
+
+# ------------------------------------------------------------ K1 layout
+def rank_rows(W: int, n: int) -> List[Tuple[int, int]]:
+    """[(row0, row1) for each rank of a user's cluster of n blocks]: the
+    kernel's own partition.  The ``ceil(W / K1_TILE_ROWS)`` tiles are
+    shared evenly over the ranks in whole tiles, the first ``T % n``
+    ranks one more; a rank past the last tile gets an empty range."""
+    T = -(-W // K1_TILE_ROWS)
+    per, rem = divmod(T, n)
+    out = []
+    for r in range(n):
+        t0 = r * per + min(r, rem)
+        t1 = t0 + per + (1 if r < rem else 0)
+        out.append((min(t0 * K1_TILE_ROWS, W), min(t1 * K1_TILE_ROWS, W)))
+    return out
+
+
+def reduce_config(W: int, clusters_of: Callable[[int, int], int]
+                  ) -> Tuple[int, int]:
+    """(n, cap) for K1 at W rows: the largest cluster size n in
+    :data:`K1_CLUSTER_SIZES` that the card places (``clusters_of(n,
+    cap)``: clusters it holds at once, each block staging ``cap``
+    tiles), ``cap`` the busiest rank's tiles, at most
+    :data:`K1_STAGE_TILES`.  Raises when the card places none."""
+    T = -(-W // K1_TILE_ROWS)
+    for n in K1_CLUSTER_SIZES:
+        cap = min(K1_STAGE_TILES, -(-T // n))
+        if clusters_of(n, cap) >= 1:
+            return n, cap
+    raise RuntimeError(f"the card places no K1 cluster at W={W}")
+
+
+def reduce_occupancy(n: int, cap: int) -> Tuple[int, int]:
+    """(clusters the current card holds at once, blocks an SM holds) for
+    K1 with clusters of n blocks, each staging ``cap`` tiles."""
+    vals = [ctypes.c_int(0) for _ in range(2)]
+    _launch("mr_reduce_occupancy", n, cap,
+            *(ctypes.addressof(v) for v in vals))
+    return vals[0].value, vals[1].value
+
+
+@functools.lru_cache(maxsize=None)
+def _config_on(device: int, W: int) -> Tuple[int, int]:
+    """:func:`reduce_config` on a card, asked once a shape (so a CUDA
+    graph can capture the launch)."""
+    with torch.cuda.device(device):
+        return reduce_config(W, lambda n, cap: reduce_occupancy(n, cap)[0])
+
+
 # ------------------------------------------------------------ wrappers
 def mixed_res_reduce(x: torch.Tensor, lam: float, d_valid: int
                      ) -> torch.Tensor:
     """K1.  x: [U, W, 128] f32 -> stats [U, 8] f32 (lanes H_INF, H_DWQ
-    raw — ``+inf`` when no element clears the threshold — and H_DBAR);
-    ``d_valid`` is the unpadded length."""
+    raw — ``+inf`` when no element clears the threshold — and H_DBAR;
+    the rest 0); ``d_valid`` is the unpadded length.  One launch."""
     U, W = _check_rows(x, d_valid)
     if not _l.on_cuda(x):
         from .ref import mixed_res_reduce_ref
         return mixed_res_reduce_ref(x, lam, d_valid)
-    _l.check(x, "x", torch.float32, (U, W, 128), x.device)
-    if x.data_ptr() % 16:
-        raise ValueError("x must be 16-byte aligned (K1 loads float4)")
-    head = torch.zeros((U, HEADER_LANES), dtype=torch.float32,
+    return _reduce(x, lam, d_valid, *_config_on(x.device.index, W))
+
+
+def _reduce(x: torch.Tensor, lam: float, d_valid: int, n: int,
+            cap: int) -> torch.Tensor:
+    """K1 on CUDA tensors at cluster size ``n`` and staging depth ``cap``."""
+    U, W = x.shape[0], x.shape[1]
+    _check_kernel_rows(x, U, W)
+    head = torch.empty((U, HEADER_LANES), dtype=torch.float32,
                        device=x.device)
     with torch.cuda.device(x.device):
         _launch("mr_reduce", x.data_ptr(), head.data_ptr(), U, W,
-                int(d_valid), float(np.float32(lam)), _l.stream())
-    LAUNCHES["mixed_res_reduce"] += 2
+                int(d_valid), float(np.float32(lam)), n, cap, _l.stream())
+    LAUNCHES["mixed_res_reduce"] += 1
     return head
 
 
@@ -118,7 +201,7 @@ def mixed_res_emit(x: torch.Tensor, head: torch.Tensor, b: int,
     if not _l.on_cuda(x):
         from .ref import mixed_res_emit_ref
         return mixed_res_emit_ref(x, head, b, d_valid, anchored=anchored)
-    _l.check(x, "x", torch.float32, (U, W, 128), x.device)
+    _check_kernel_rows(x, U, W)
     _l.check(head, "head", torch.float32, (U, HEADER_LANES), x.device)
     new = functools.partial(torch.empty, dtype=torch.uint32,
                             device=x.device)
@@ -130,6 +213,30 @@ def mixed_res_emit(x: torch.Tensor, head: torch.Tensor, b: int,
                 int(anchored), _l.stream())
     LAUNCHES["mixed_res_emit"] += 1
     return signs, hi, codes
+
+
+def cutoffs(inf: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
+    """The cutoff search K1 and K2 run, one per pair: inf, lam [n] f32 ->
+    [n, 2] f32 (lo, hi) — ``lo <= |x| <= hi`` exactly when
+    ``|x| / safe_inf >= lam`` in f32.  CPU tensors take the plain twin
+    ``ref.threshold_cutoff``; CUDA tensors one launch of the search
+    (a check of the search, not a step of any path: uncounted)."""
+    if inf.dim() != 1 or inf.shape != lam.shape or inf.numel() < 1:
+        raise ValueError(f"inf and lam must be [n >= 1], got "
+                         f"{tuple(inf.shape)} and {tuple(lam.shape)}")
+    if not _l.on_cuda(inf):
+        from .ref import threshold_cutoff
+        return torch.tensor([threshold_cutoff(float(i), float(m))
+                             for i, m in zip(inf.tolist(), lam.tolist())],
+                            dtype=torch.float32).reshape(-1, 2)
+    n = inf.numel()
+    _l.check(inf, "inf", torch.float32, (n,), inf.device)
+    _l.check(lam, "lam", torch.float32, (n,), inf.device)
+    out = torch.empty((n, 2), dtype=torch.float32, device=inf.device)
+    with torch.cuda.device(inf.device):
+        _launch("mr_cutoffs", inf.data_ptr(), lam.data_ptr(), out.data_ptr(),
+                n, _l.stream())
+    return out
 
 
 def mixed_res_dequant_reduce(signs: torch.Tensor, hi: torch.Tensor,

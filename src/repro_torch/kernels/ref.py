@@ -15,7 +15,7 @@ bit reinterpretations through int32, which every device supports).
 from __future__ import annotations
 
 import math
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -86,6 +86,50 @@ def sign_dequant_reduce_ref(words: torch.Tensor, scales: torch.Tensor
     for g in range(1, G):
         out = out + one(g)
     return out
+
+
+_F32_INF_BITS = 0x7F800000
+
+
+def _f32(bits: int) -> np.float32:
+    return np.array(bits, dtype=np.uint32).view(np.float32)[()]
+
+
+def threshold_cutoff(inf: float, lam: float) -> Tuple[float, float]:
+    """The threshold rule as a range: ``(lo, hi)`` such that, for every
+    f32 ``a = |x|``, ``lo <= a <= hi`` exactly when ``a / safe_inf >=
+    lam`` in f32 (``safe_inf = inf`` if ``inf > 0`` else 1).
+
+    A correctly rounded division is monotone in its numerator, so for a
+    finite ``safe_inf`` the passing set is ``[t*, +inf]``, ``t*`` the
+    least passing bit pattern, found here by bisection over the patterns
+    of ``[0, +inf]``; K1 and K2 find the same ``t*`` (a warp tests 32
+    patterns a round).  ``safe_inf = +inf`` sends finite ``a`` to 0 and
+    ``+inf`` to NaN: the set is ``[0, FLT_MAX]`` when ``0 >= lam``.  An
+    empty set is ``(nan, nan)``; a NaN ``a`` never passes."""
+    inf32, lam32 = np.float32(inf), np.float32(lam)
+    c = inf32 if inf32 > 0 else np.float32(1.0)
+    nan = (math.nan, math.nan)
+    if np.isinf(c):
+        return (0.0, float(np.finfo(np.float32).max)) \
+            if np.float32(0.0) >= lam32 else nan
+
+    def passes(bits: int) -> bool:
+        with np.errstate(over="ignore", under="ignore"):
+            return bool(_f32(bits) / c >= lam32)
+
+    if not passes(_F32_INF_BITS):
+        return nan
+    if passes(0):
+        return (0.0, math.inf)
+    lo, hi = 1, _F32_INF_BITS          # the least passing is in [lo, hi]
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if passes(mid):
+            hi = mid
+        else:
+            lo = mid + 1
+    return (float(_f32(hi)), math.inf)
 
 
 def mixed_res_reduce_ref(x: torch.Tensor, lam: float, d_valid: int

@@ -2,7 +2,9 @@
 NVIDIA GPU.
 
 Every test here needs the card: the ``cuda`` fixture skips without one,
-so the module collects the same tests everywhere.  Run on a machine
+so the module collects the same tests everywhere.  K1 and K2 are also
+held bit for bit at special values (NaN, +-inf, subnormals, -0.0), at
+d just under 2**24 and replayed from a CUDA graph.  Run on a machine
 with the card::
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -67,9 +69,120 @@ def test_kernels_equal_plain_versions(cuda, d, lam, b):
         want = ref.mixed_res_dequant_reduce_ref(*wire[:4], w, b, acc=a)
         assert bits_equal(got, want)
     torch.cuda.synchronize()
-    assert LAUNCHES == {"mixed_res_reduce": 4, "mixed_res_emit": 1,
+    # K1 is one launch a call: the direct call and the kernel encode's
+    assert LAUNCHES == {"mixed_res_reduce": 2, "mixed_res_emit": 1,
                         "mixed_res_dequant_reduce": 2, "signpack": 0,
                         "sign_dequant_reduce": 0, "flash_decode": 0}
+
+
+def special_deltas(seed, U, d, device):
+    """:func:`deltas` with special values: user 0 holds NaN, +-inf,
+    +-subnormals and -0.0; user 2 +-inf (an infinite max); user 3 only
+    subnormals (a subnormal max); user 1 stays all zero."""
+    x = deltas(seed, U, d, device)
+    nan, inf = float("nan"), float("inf")
+    x[0, :6] = torch.tensor([nan, inf, -inf, 1.4e-45, -1.4e-45, -0.0])
+    if U > 3:
+        x[2, 5:7] = torch.tensor([inf, -inf])
+        x[3] = x[3] * 1e-39
+    return x
+
+
+def k1_k2_exact(x, lam, b):
+    """K1, the kernel encode (K1, epilogue, K2) and K2 on the anchored
+    rule against their plain versions on the same CUDA inputs, bit for
+    bit."""
+    U, d = x.shape
+    x3 = ops.wire_view(x).contiguous()
+    head = mr.mixed_res_reduce(x3, lam, d)
+    assert bits_equal(head, ref.mixed_res_reduce_ref(x3, lam, d))
+    wire = ops.mixed_res_encode(x, lam, b, path=WirePath(lowering="kernel"))
+    plain = ops.mixed_res_encode(x, lam, b,
+                                 path=WirePath(lowering="reference"))
+    for k, p in zip(wire, plain):
+        assert bits_equal(k, p)
+    got = mr.mixed_res_emit(x3, wire.head, b, d, anchored=True)
+    want = ref.mixed_res_emit_ref(x3, wire.head, b, d, anchored=True)
+    for k, p in zip(got, want):
+        assert bits_equal(k, p)
+
+
+@pytest.mark.parametrize("d", [3610, 65500])
+@pytest.mark.parametrize("lam", [0.0, 0.2, 1.0])
+def test_k1_k2_special_values_equal_plain_versions(cuda, d, lam):
+    """NaN, +-inf, subnormals, -0.0, an infinite max, a subnormal max
+    and an all-zero user; W = 29 (most of K1's ranks empty) and 512."""
+    reset_launch_counts()
+    k1_k2_exact(special_deltas(d + 7, 5, d, cuda), lam, 10)
+    torch.cuda.synchronize()
+    assert LAUNCHES["mixed_res_reduce"] == 2
+    assert LAUNCHES["mixed_res_emit"] == 2
+
+
+def test_k1_k2_near_2_24(cuda):
+    """d = 16,777,000, just under 2**24: most of each user's row lies
+    beyond K1's staged tiles and is read again from L2 or memory."""
+    x = special_deltas(3, 2, 16_777_000, cuda)
+    for lam in (0.0, 0.2, 1.0):
+        k1_k2_exact(x, lam, 10)
+    torch.cuda.synchronize()
+
+
+def test_k1_k2_replay_from_a_cuda_graph(cuda):
+    """K1 and K2 captured once in a CUDA graph (the launch configuration
+    is asked of the card at the first call, before capture) replay to
+    the plain versions' bits, on new deltas copied in place."""
+    U, d, b, lam = 8, 462410, 10, 0.2
+    x3 = ops.wire_view(deltas(4, U, d, cuda)).contiguous()
+    head = ops.mixed_res_encode(x3.reshape(U, -1)[:, :d], lam, b).head
+
+    def both():
+        return mr.mixed_res_reduce(x3, lam, d), \
+            mr.mixed_res_emit(x3, head, b, d)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        both()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        stats, planes = both()
+    for seed in (5, 6):
+        x3.copy_(ops.wire_view(deltas(seed, U, d, cuda)))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert bits_equal(stats, ref.mixed_res_reduce_ref(x3, lam, d))
+        for k, p in zip(planes, ref.mixed_res_emit_ref(x3, head, b, d)):
+            assert bits_equal(k, p)
+
+
+def test_cutoffs_on_card_equal_the_twin(cuda):
+    """The cutoff search K1 and K2 run, on 4000 (inf, lam) pairs from
+    the least subnormal to 3e38, zero, NaN and +inf, against the numpy
+    bisection in ``ref.threshold_cutoff``."""
+    rng = np.random.default_rng(0)
+    inf = (10.0 ** rng.uniform(-45, 38.5, 4000)).astype(np.float32)
+    inf[:6] = [0.0, np.nan, np.inf, 1.4e-45, 3e38, np.inf]
+    lam = np.array([0.0, 0.2, 1.0, 1e-30, 0.999999, -1.0, np.nan],
+                   np.float32)[rng.integers(0, 7, 4000)]
+    got = mr.cutoffs(torch.tensor(inf, device=cuda),
+                     torch.tensor(lam, device=cuda))
+    want = mr.cutoffs(torch.tensor(inf), torch.tensor(lam))
+    assert bits_equal(got.cpu(), want)
+
+
+def test_k1_cluster_config_on_card(cuda):
+    """The card places K1's clusters of 16 at the main shape, and a
+    configuration it cannot launch raises."""
+    x3 = torch.zeros(2, 3840, 128, device=cuda)
+    n, cap = mr.reduce_config(3840, lambda n, c: mr.reduce_occupancy(n, c)[0])
+    assert (n, cap) == (16, mr.K1_STAGE_TILES)
+    assert mr.reduce_occupancy(n, cap)[1] >= 3
+    with pytest.raises(RuntimeError, match="mr_reduce launch failed"):
+        mr._reduce(x3, 0.2, 3840 * 128 - 5, 17, cap)
+    with pytest.raises(RuntimeError, match="mr_reduce launch failed"):
+        mr._reduce(x3, 0.2, 3840 * 128 - 5, 16, 0)
 
 
 @pytest.mark.parametrize("d", [3610, 65500])
@@ -124,7 +237,7 @@ def test_engine_round_on_card_matches_cpu(cuda):
             assert bits_equal(a, c)
         assert bits_equal(card[2], cpu[2])
         assert bits_equal(card[1], cpu[1])
-    assert LAUNCHES == {"mixed_res_reduce": 8, "mixed_res_emit": 4,
+    assert LAUNCHES == {"mixed_res_reduce": 4, "mixed_res_emit": 4,
                         "mixed_res_dequant_reduce": 2, "signpack": 0,
                         "sign_dequant_reduce": 0, "flash_decode": 0}
 
