@@ -17,8 +17,12 @@
    K1–K3 also at special values (NaN, +-inf, subnormals, -0.0, an
    infinite and a subnormal max) and at d=16,777,000, K2 on both rules;
    K1 and K2 replayed from one CUDA graph; the cutoff search of K1 and
-   K2 against its numpy twin — and one narrow two-round run through the
-   kernels against the same run on the CPU's plain path; K6
+   K2 against its numpy twin; K1 and K2 past one launch of users (U =
+   65,536 at d=3610, two launches each); K5 alone at G from 1 to 1000
+   and W in {1, 29, 3840}, at scales of 0.0, -0.0, subnormals, +-inf
+   and NaN (-0.0 kept at G=1), and replayed from a CUDA graph — and one
+   narrow two-round run through the kernels against the same run on the
+   CPU's plain path; K6
    (flash-decode attention) at the serve shape (B=8, 8 kv heads, G=4,
    D=128, S=4096) and edge shapes, f32 within 1e-5 and bf16 within one
    bf16 ulp (``K6_TOL``); K6
@@ -72,6 +76,14 @@ sys.path.insert(0, str(ROOT / "src"))
 
 MAIN = dict(U=40, d=462410, b=10, lam=0.2)
 ROUNDS = 3
+# K1 and K2 past one launch of users (65,535 a launch)
+MANY_USERS = 65536
+# K5's battery: peer counts below, at and past a stage of 32 peers, row
+# counts across its blocks, and the special scales
+K5_G = (1, 2, 3, 40, 41, 257, 1000)
+K5_W = (1, 29, 3840)
+K5_SPECIAL_SCALES = (0.0, -0.0, 1.4e-45, -1e-39, float("inf"),
+                     -float("inf"), float("nan"), 0.75)
 # the serve path: granite-3-8b decode, and K6's shape there (one layer)
 SERVE = dict(arch="granite-3-8b", B=8, prompt=16, gen=48, max_len=4096)
 K6_SERVE = dict(B=8, Hkv=8, G=4, S=4096, D=128, Dv=128)
@@ -390,6 +402,104 @@ def check_sign_kernels(dev, G, d, edges):
         raise AssertionError("K4 sign bits of 0, -0, NaN, +-subnormal, "
                              f"+-inf: {int(words_k[0, 0]) & 0x7F:#09b}")
     return errs, (rows, words, scales)
+
+
+def sign_words(G, W, seed, device):
+    """[G, W, 4] uint32 sign words, every bit pattern equally likely."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randint(-2 ** 31, 2 ** 31, (G, W, 4), generator=g,
+                         dtype=torch.int64, device=device) \
+        .to(torch.int32).view(torch.uint32)
+
+
+def check_k5(dev):
+    """K5 alone against its plain version, bit for bit: random words at
+    every G of ``K5_G`` and W of ``K5_W``; scales of 0.0, -0.0,
+    subnormals, +-inf and NaN rotated over the peers at G in (1, 2, 3,
+    40), where at G = 1 a scale of 0.0 must give -0.0 wherever the bit is
+    clear; and one capture in a CUDA graph at the main shape, replayed on
+    new words and scales copied in place.  Returns the cases checked."""
+    import torch
+    from repro_torch.kernels import quant_pack as qp, ref
+
+    def exact(words, scales, out=None):
+        got = qp.sign_dequant_reduce(words, scales) if out is None else out
+        want = ref.sign_dequant_reduce_ref(words, scales)
+        torch.cuda.synchronize()
+        if not bitwise_equal(got, want):
+            raise AssertionError(
+                f"K5 != plain at G={words.shape[0]} W={words.shape[1]} "
+                f"scales {scales[:8].tolist()}: max abs err "
+                f"{max_abs_err(got, want)}")
+        return got
+
+    n = 0
+    for G in K5_G:
+        for W in K5_W:
+            scales = torch.rand(G, generator=torch.Generator(device=dev)
+                                .manual_seed(G), device=dev) * 2 - 0.5
+            exact(sign_words(G, W, G * W, dev), scales)
+            n += 1
+    special = torch.tensor(K5_SPECIAL_SCALES, device=dev)
+    for G in (1, 2, 3, 40):
+        words = sign_words(G, 29, 7 + G, dev)
+        for j in range(len(K5_SPECIAL_SCALES)):
+            scales = special[(torch.arange(G, device=dev) + j)
+                             % len(K5_SPECIAL_SCALES)]
+            got = exact(words, scales)
+            n += 1
+            if G == 1 and j == 0:            # a scale of +0.0
+                bits = ref._unpack(words[0], 1).reshape(29, 128) > 0
+                if not (torch.equal(torch.signbit(got), ~bits)
+                        and bool((got == 0.0).all())):
+                    raise AssertionError("K5 at G=1 with a scale of 0.0 "
+                                         "lost a -0.0")
+    G, W = MAIN["U"], 3840
+    words = sign_words(G, W, 1, dev)
+    scales = torch.rand(G, device=dev) - 0.5
+    graph, out = capture(lambda: qp.sign_dequant_reduce(words, scales))
+    for seed in (2, 3):
+        words.copy_(sign_words(G, W, seed, dev))
+        scales.copy_(torch.rand(G, device=dev) * 4 - 2)
+        graph.replay()
+        exact(words, scales, out)
+        n += 1
+    return n
+
+
+def check_many_users(dev):
+    """K1 and K2 past one launch of users: U = 65,536 at d = 3610 (W =
+    29), K1, the kernel encode (K1, epilogue, K2) and K2 on the anchored
+    rule against their plain versions, bit for bit; each call launches
+    one kernel a chunk of users.  Returns (K1, K2) launches counted."""
+    import torch
+    from repro_torch.kernels import (LAUNCHES, WirePath, mixed_res as mr,
+                                     ops, ref)
+
+    U, d, lam, b = MANY_USERS, 3610, MAIN["lam"], MAIN["b"]
+    x = deltas(U, d, seed=U, device=dev)
+    x3 = ops.wire_view(x).contiguous()
+    before = (LAUNCHES["mixed_res_reduce"], LAUNCHES["mixed_res_emit"])
+    pairs = [(mr.mixed_res_reduce(x3, lam, d),
+              ref.mixed_res_reduce_ref(x3, lam, d))]
+    wire = ops.mixed_res_encode(x, lam, b, path=WirePath(lowering="kernel"))
+    plain = ops.mixed_res_encode(x, lam, b,
+                                 path=WirePath(lowering="reference"))
+    pairs += list(zip(wire, plain))
+    pairs += list(zip(mr.mixed_res_emit(x3, wire.head, b, d, anchored=True),
+                      ref.mixed_res_emit_ref(x3, wire.head, b, d,
+                                             anchored=True)))
+    torch.cuda.synchronize()
+    if not all(bitwise_equal(k, p) for k, p in pairs):
+        raise AssertionError(f"K1/K2 != plain at U={U} d={d}")
+    launched = (LAUNCHES["mixed_res_reduce"] - before[0],
+                LAUNCHES["mixed_res_emit"] - before[1])
+    chunks = len(mr.user_chunks(U))
+    if launched != (2 * chunks, 2 * chunks):
+        raise AssertionError(f"K1/K2 launches at U={U}: {launched}, "
+                             f"expected {2 * chunks} each")
+    return launched
 
 
 def narrow_reference_check(dev):
@@ -1180,12 +1290,19 @@ def main():
           f"bit-exact, errors {sign_errs}")
     n_edge = 0
     for de in (3610, 65500):
-        for ge in (1, 3, U):
+        for ge in (1, 3, U, 41, 257):
             check_sign_kernels(dev, ge, de, edges=True)
             n_edge += 1
     print(f"K4-K5 edge shapes: {n_edge} cases (W=29, W=512 with "
-          "d % 128 != 0, G in {1,3,40}, zeros, -0.0, NaN, +-inf, "
+          "d % 128 != 0, G in {1,3,40,41,257}, zeros, -0.0, NaN, +-inf, "
           "+-subnormal, an all-zero plane) bit-exact")
+    n_edge = check_k5(dev)
+    print(f"K5 alone: {n_edge} cases (G in {K5_G} x W in {K5_W}; scales "
+          f"{K5_SPECIAL_SCALES} rotated over G in (1, 2, 3, 40), -0.0 kept "
+          "at G=1; 2 replays from one CUDA graph at G=40, W=3840) bit-exact")
+    launched = check_many_users(dev)
+    print(f"K1-K2 at U={MANY_USERS}, d=3610: bit-exact, (K1, K2) launches "
+          f"{launched} over two calls each")
     narrow_reference_check(dev)
 
     phase("K6 flash-decode against its plain version")

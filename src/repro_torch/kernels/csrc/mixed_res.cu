@@ -544,7 +544,9 @@ extern "C" {
 
 // K1.  x: [U, W, 128] f32 (16-byte aligned) -> head: [U, 8] f32, every
 // lane written.  n: blocks in a user's cluster (1..16); cap: tiles of 16
-// rows a block stages in shared memory (1..28).
+// rows a block stages in shared memory (1..28).  The users lie on
+// gridDim.y, so U <= 65535 a launch; the wrapper launches more users in
+// chunks at pointer offsets (mixed_res.user_chunks).
 int mr_reduce(const float* x, float* head, int U, int W, int d_valid,
               float lam, int n, int cap, void* stream) {
   if (U < 1 || U > 65535 || W < 1 || W > MAX_ROWS || d_valid < 1 ||
@@ -580,7 +582,8 @@ int mr_reduce_occupancy(int n, int cap, int* clusters, int* blocks_per_sm) {
 }
 
 // K2.  x: [U, W, 128] f32 (16-byte aligned); head: [U, 8] f32 -> signs,
-// hi: [U, W, 4] u32, codes: [U, W, 4 * bw] u32.
+// hi: [U, W, 4] u32, codes: [U, W, 4 * bw] u32.  U <= 65535 a launch,
+// as for K1.
 int mr_emit(const float* x, const float* head, unsigned* signs,
             unsigned* hi, unsigned* codes, int U, int W, int d_valid, int b,
             int anchored, void* stream) {

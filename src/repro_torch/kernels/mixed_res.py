@@ -53,6 +53,9 @@ K1_STAGE_TILES = 7
 # the kernels do their row arithmetic in 32 bits: d < 2**24 pads to at
 # most 2**17 rows
 MAX_ROWS = 2 ** 17
+# K1 and K2 put the users on gridDim.y, so one launch takes at most this
+# many; the wrappers launch more in chunks (:func:`user_chunks`)
+MAX_USERS_PER_LAUNCH = 65535
 
 
 def code_width(b: int) -> int:
@@ -101,9 +104,20 @@ def _check_rows(x: torch.Tensor, d_valid: int):
         raise ValueError(f"d_valid={d_valid} outside (0, {W * 128}]")
     if d_valid >= 2 ** 24:
         raise ValueError("f32 dbar accumulator is exact only to 2**24")
-    if U > 65535:
-        raise ValueError(f"at most 65535 users per launch, got {U}")
     return U, W
+
+
+def user_chunks(U: int) -> List[Tuple[int, int]]:
+    """[(u0, u1)]: ``range(U)`` cut into the fewest consecutive chunks
+    of at most :data:`MAX_USERS_PER_LAUNCH` users, their sizes within one
+    of each other.  Users are independent in K1 and K2, so a launch a
+    chunk gives the bits of one launch over all users."""
+    n = -(-U // MAX_USERS_PER_LAUNCH)
+    per, rem = divmod(U, n)
+    bounds = [0]
+    for i in range(n):
+        bounds.append(bounds[-1] + per + (1 if i < rem else 0))
+    return list(zip(bounds[:-1], bounds[1:]))
 
 
 def _check_kernel_rows(x: torch.Tensor, U: int, W: int) -> None:
@@ -169,7 +183,8 @@ def mixed_res_reduce(x: torch.Tensor, lam: float, d_valid: int
                      ) -> torch.Tensor:
     """K1.  x: [U, W, 128] f32 -> stats [U, 8] f32 (lanes H_INF, H_DWQ
     raw — ``+inf`` when no element clears the threshold — and H_DBAR;
-    the rest 0); ``d_valid`` is the unpadded length.  One launch."""
+    the rest 0); ``d_valid`` is the unpadded length.  One launch a chunk
+    of :func:`user_chunks` (U = 65,536 counts 2 in :data:`LAUNCHES`)."""
     U, W = _check_rows(x, d_valid)
     if not _l.on_cuda(x):
         from .ref import mixed_res_reduce_ref
@@ -185,9 +200,11 @@ def _reduce(x: torch.Tensor, lam: float, d_valid: int, n: int,
     head = torch.empty((U, HEADER_LANES), dtype=torch.float32,
                        device=x.device)
     with torch.cuda.device(x.device):
-        _launch("mr_reduce", x.data_ptr(), head.data_ptr(), U, W,
-                int(d_valid), float(np.float32(lam)), n, cap, _l.stream())
-    LAUNCHES["mixed_res_reduce"] += 1
+        for u0, u1 in user_chunks(U):
+            _launch("mr_reduce", x[u0:u1].data_ptr(), head[u0:u1].data_ptr(),
+                    u1 - u0, W, int(d_valid), float(np.float32(lam)), n, cap,
+                    _l.stream())
+            LAUNCHES["mixed_res_reduce"] += 1
     return head
 
 
@@ -196,7 +213,8 @@ def mixed_res_emit(x: torch.Tensor, head: torch.Tensor, b: int,
     """K2.  x: [U, W, 128] f32, head: [U, 8] f32 -> (signs [U, W, 4],
     hi [U, W, 4], codes [U, W, 4*bw]) uint32.  ``anchored=False`` is the
     paper's threshold rule (lane H_LAM), ``anchored=True`` the
-    static-budget rule ``|x| >= dw_q``."""
+    static-budget rule ``|x| >= dw_q``.  One launch a chunk of
+    :func:`user_chunks`."""
     U, W = _check_rows(x, d_valid)
     if not _l.on_cuda(x):
         from .ref import mixed_res_emit_ref
@@ -208,10 +226,11 @@ def mixed_res_emit(x: torch.Tensor, head: torch.Tensor, b: int,
     signs, hi, codes = new((U, W, 4)), new((U, W, 4)), \
         new((U, W, code_words_per_row(b)))
     with torch.cuda.device(x.device):
-        _launch("mr_emit", x.data_ptr(), head.data_ptr(), signs.data_ptr(),
-                hi.data_ptr(), codes.data_ptr(), U, W, int(d_valid), b,
-                int(anchored), _l.stream())
-    LAUNCHES["mixed_res_emit"] += 1
+        for u0, u1 in user_chunks(U):
+            _launch("mr_emit", x[u0:u1].data_ptr(), head[u0:u1].data_ptr(),
+                    *(p[u0:u1].data_ptr() for p in (signs, hi, codes)),
+                    u1 - u0, W, int(d_valid), b, int(anchored), _l.stream())
+            LAUNCHES["mixed_res_emit"] += 1
     return signs, hi, codes
 
 

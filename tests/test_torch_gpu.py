@@ -12,7 +12,9 @@ with the card::
 No jax here: the machine with the card has none.  Each kernel is held
 to its plain PyTorch version on the same CUDA inputs — planes, headers,
 sign words and the reduces bit for bit; K6, whose sums run in another
-order, within 1e-5 (f32) and 2e-2 (bf16).
+order, within 1e-5 (f32) and 2e-2 (bf16).  K5 also at scales of 0.0,
+-0.0, subnormals, +-inf and NaN, at G from 1 to 1000 and replayed from
+a CUDA graph; K1 and K2 past one launch of users (U = 65,536).
 """
 import dataclasses
 
@@ -203,6 +205,117 @@ def test_sign_kernels_equal_plain_versions(cuda, d, G):
     assert bits_equal(got, ref.sign_dequant_reduce_ref(w3, scales))
     torch.cuda.synchronize()
     assert LAUNCHES["signpack"] == 1 and LAUNCHES["sign_dequant_reduce"] == 1
+
+
+def random_words(G, W, seed, device):
+    """[G, W, 4] uint32 sign words, every bit pattern equally likely."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randint(-2 ** 31, 2 ** 31, (G, W, 4), generator=g,
+                         dtype=torch.int64, device=device) \
+        .to(torch.int32).view(torch.uint32)
+
+
+@pytest.mark.parametrize("W", [1, 29, 3840])
+@pytest.mark.parametrize("G", [1, 2, 3, 40, 41, 257, 1000])
+def test_k5_equals_plain_version(cuda, G, W):
+    """K5 at peer counts below, at and past a stage of 32, across its
+    blocks' rows (W = 1, 29 ragged, 3840 the main shape), bit for bit."""
+    words = random_words(G, W, G * W, cuda)
+    scales = torch.rand(G, generator=torch.Generator(device=cuda)
+                        .manual_seed(G), device=cuda) * 2 - 0.5
+    reset_launch_counts()
+    got = qp.sign_dequant_reduce(words, scales)
+    assert bits_equal(got, ref.sign_dequant_reduce_ref(words, scales))
+    torch.cuda.synchronize()
+    assert LAUNCHES["sign_dequant_reduce"] == 1
+
+
+K5_SPECIAL_SCALES = (0.0, -0.0, 1.4e-45, -1e-39, float("inf"),
+                     -float("inf"), float("nan"), 0.75)
+
+
+@pytest.mark.parametrize("G", [1, 2, 3, 40])
+def test_k5_special_scales_equal_plain_version(cuda, G):
+    """Scales of 0.0, -0.0, subnormals, +-inf and NaN, bit for bit: at
+    G = 1 each alone (a scale of 0.0 gives -0.0 where the bit is clear),
+    past it every rotation of them over the peers."""
+    W = 29
+    words = random_words(G, W, 7 + G, cuda)
+    special = torch.tensor(K5_SPECIAL_SCALES, device=cuda)
+    n = len(K5_SPECIAL_SCALES)
+    for j in range(n):
+        scales = special[(torch.arange(G, device=cuda) + j) % n]
+        got = qp.sign_dequant_reduce(words, scales)
+        assert bits_equal(got, ref.sign_dequant_reduce_ref(words, scales))
+        if G == 1 and j == 0:                   # a scale of +0.0
+            bits = ref._unpack(words[0], 1).reshape(W, 128) > 0
+            assert torch.equal(torch.signbit(got), ~bits)
+            assert bool((got == 0.0).all())
+
+
+def test_k5_replay_from_a_cuda_graph(cuda):
+    """K5 at the main shape (G = 40, W = 3840) captured once in a CUDA
+    graph and replayed on new words and scales copied in place: each
+    replay equals the plain version bit for bit."""
+    G, W = 40, 3840
+    words = random_words(G, W, 1, cuda)
+    scales = torch.rand(G, device=cuda) - 0.5
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        qp.sign_dequant_reduce(words, scales)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = qp.sign_dequant_reduce(words, scales)
+    for seed in (2, 3):
+        words.copy_(random_words(G, W, seed, cuda))
+        scales.copy_(torch.rand(G, device=cuda) * 4 - 2)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert bits_equal(out, ref.sign_dequant_reduce_ref(words, scales))
+
+
+def test_k5_refuses_misaligned_words_and_other_plans(cuda):
+    words = random_words(3, 9, 0, cuda)
+    scales = torch.ones(3, device=cuda)
+    flat = torch.empty(3 * 9 * 4 + 1, dtype=torch.uint32, device=cuda)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        qp.sign_dequant_reduce(flat[1:].view(3, 9, 4), scales)
+    with pytest.raises(RuntimeError, match="qp_sign_dequant_reduce launch "
+                                           "failed"):
+        qp._l.launch(qp._library(), "qp_sign_dequant_reduce",
+                     words.data_ptr(), scales.data_ptr(),
+                     torch.empty(9, 128, device=cuda).data_ptr(), 3, 9,
+                     qp.K5_ROWS // 2, qp.K5_LANES, 2, qp._l.stream())
+
+
+def test_k1_k2_past_one_launch_of_users(cuda):
+    """U = 65,536 users at d = 3610 (W = 29): K1 and K2 launch two chunks
+    of users each and equal their plain versions bit for bit, as does
+    the kernel encode (K1, epilogue, K2); no ValueError."""
+    U, d, lam, b = 65536, 3610, 0.2, 10
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randn((U, d), generator=g, device=cuda)
+    x[:, :40] *= 50.0
+    x[1] = 0.0
+    x3 = ops.wire_view(x).contiguous()
+    reset_launch_counts()
+    head = mr.mixed_res_reduce(x3, lam, d)
+    assert bits_equal(head, ref.mixed_res_reduce_ref(x3, lam, d))
+    wire = ops.mixed_res_encode(x, lam, b, path=WirePath(lowering="kernel"))
+    plain = ops.mixed_res_encode(x, lam, b,
+                                 path=WirePath(lowering="reference"))
+    for k, p in zip(wire, plain):
+        assert bits_equal(k, p)
+    del plain
+    got = mr.mixed_res_emit(x3, wire.head, b, d, anchored=True)
+    want = ref.mixed_res_emit_ref(x3, wire.head, b, d, anchored=True)
+    for k, p in zip(got, want):
+        assert bits_equal(k, p)
+    torch.cuda.synchronize()
+    assert LAUNCHES["mixed_res_reduce"] == 4
+    assert LAUNCHES["mixed_res_emit"] == 4
 
 
 def test_kernel_wrappers_check_inputs(cuda):
