@@ -46,7 +46,16 @@
    read just after: 3 rounds on the packed wire plane (K1–K3), 3 on the
    signplane plane (K4–K5), and 1 on the dense plane as registered;
    then a stage breakdown of one packed and one signplane round;
-7. serves full-width granite-3-8b (random bf16 weights from a seed, 40
+7. the paper's baselines on the dense plane at full width: on one
+   round's deltas (``[40, 462410]``) each of classic, top-q, LAQ (three
+   successive calls) and AQUILA on the card against the CPU
+   (``tests/_torch_parity.baseline_card_vs_cpu``); 3 rounds each of
+   classic, top-q, LAQ and AQUILA under bisection-LP and 2 of
+   mixed-resolution(0.4, 4) under Dinkelbach and max-sum-rate, each
+   round's wall time, stage split and peak memory printed and each
+   user's bits held to the quantizer's payload rule; then the Table III
+   script (``benchmarks/torch_table3_latency.py``) in quick mode;
+8. serves full-width granite-3-8b (random bf16 weights from a seed, 40
    layers): B=8 prompts of 16 tokens, 48 generated, a 4096-position
    cache, with the launch counters zeroed just before — 40 K6 launches
    a step — printing ms/step, tokens/s and peak memory, and holds
@@ -56,12 +65,13 @@
    and holds one such step's logits through K6 against the same step
    with K6's plain version in its place; then times decode at a short
    context and at the nearly full cache in turns, three of each;
-8. prints one ``{"kernels": [...]}`` JSON line (K1–K6), and ends with
+9. prints one ``{"kernels": [...]}`` JSON line (K1–K6), and ends with
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, before printing any result, without a CUDA device or
 without the repository's sources beside it.  Any failed check raises.
 """
+import csv
 import dataclasses
 import json
 import math
@@ -73,6 +83,7 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(1, str(ROOT / "tests"))      # _torch_parity (no jax)
 
 MAIN = dict(U=40, d=462410, b=10, lam=0.2)
 ROUNDS = 3
@@ -84,6 +95,15 @@ K5_G = (1, 2, 3, 40, 41, 257, 1000)
 K5_W = (1, 29, 3840)
 K5_SPECIAL_SCALES = (0.0, -0.0, 1.4e-45, -1e-39, float("inf"),
                      -float("inf"), float("nan"), 0.75)
+# the paper's baselines at Table III's settings (benchmarks/
+# torch_table3_latency.py), and classic FL from Table II
+BASELINES = {"classic": ("classic", {}),
+             "top-q": ("top-q", {"q": 0.01}),
+             "laq": ("laq", {"b": 4, "xi": 0.5}),
+             "aquila": ("aquila", {"b_min": 2, "b_max": 8, "tol": 0.05})}
+BASELINE_POWERS = {"dinkelbach": ("dinkelbach", {"outer": 4, "inner": 15}),
+                   "max-sum-rate": ("max-sum-rate", {"iters": 20,
+                                                     "restarts": 0})}
 # the serve path: granite-3-8b decode, and K6's shape there (one layer)
 SERVE = dict(arch="granite-3-8b", B=8, prompt=16, gen=48, max_len=4096)
 K6_SERVE = dict(B=8, Hkv=8, G=4, S=4096, D=128, Dv=128)
@@ -568,7 +588,7 @@ def plane_agreement(eng):
     xs, ys = eng.draw_minibatches(state)
     with torch.no_grad():
         flat = eng._batched_local(state.params, xs, ys)
-        sign, bits, aux = eng.aggregate(flat)
+        sign, bits, aux, _ = eng.aggregate(flat)
         res, _ = q.batched(flat)
         dense = torch.einsum("k,kd->d", w, res.recon)
         packed, pbits, _ = ops.mixed_res_wire_aggregate(flat, w, q.lambda_,
@@ -704,6 +724,155 @@ def round_breakdown(eng, state):
     for name, sec in out.items():
         print(f"  {name}: {sec:.6f} s ({100 * sec / total:.1f}%)")
     print(f"  total {total:.6f} s")
+
+
+def timed_stages(eng):
+    """Wrap the engine's stages in place, each closed by a synchronize;
+    returns the dict their seconds add up in (cleared by the caller a
+    round).  Aggregate minus batched quantize is the weighted sum."""
+    import torch
+    times = {}
+
+    def wrap(obj, attr, label):
+        fn = getattr(obj, attr)
+
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            times[label] = times.get(label, 0.0) + time.perf_counter() - t0
+            return out
+        setattr(obj, attr, run)
+
+    wrap(eng, "_batched_local", "local training")
+    wrap(eng.quantizer, "batched", "batched quantize")
+    wrap(eng, "aggregate", "aggregate")
+    wrap(eng, "solve_uplink_host", "host power solve")
+    return times
+
+
+def drive_baseline(eng, rounds, qlabel, label):
+    """``rounds`` rounds of ``eng`` through its round-stepping API, on the
+    dense plane: no wire kernel launches.  Prints each round's wall time,
+    its stage split and the peak device memory; checks each user's bits
+    against the quantizer's payload rule and that every logged number
+    and param is finite.  Returns the per-round logs."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import LAUNCHES
+
+    from _torch_parity import payload_rule
+
+    rule, ok = payload_rule(qlabel, eng.d)
+    times = timed_stages(eng)
+    state = eng.start_run()
+    before = dict(LAUNCHES)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for t in range(1, rounds + 1):
+        times.clear()
+        t0 = time.perf_counter()
+        work = eng.train_round(state, t)
+        uplink, per_user = eng.solve_uplink_host(state.chan, work.bits_np,
+                                                 work.active)
+        eng.finish_round(state, work, uplink, per_user_s=per_user)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        log = state.logs[-1]
+        split = {"local training": times["local training"],
+                 "batched quantize": times["batched quantize"],
+                 "weighted sum": times["aggregate"]
+                 - times["batched quantize"],
+                 "host power solve": times["host power solve"]}
+        split["rest (draw, update, eval)"] = wall - sum(split.values())
+        print(f"{label} round {t}: wall {wall:.6f} s ("
+              + ", ".join(f"{k} {v:.6f}" for k, v in split.items())
+              + f"); peak {torch.cuda.max_memory_allocated() / 2**20:.1f} "
+              f"MiB; bits min {log.bits_per_user.min():.0f} max "
+              f"{log.bits_per_user.max():.0f}, uplink "
+              f"{log.uplink_latency_s:.6f} s, acc {log.test_acc:.4f}")
+        if not np.all(ok(log.bits_per_user)):
+            raise AssertionError(f"{label} round {t}: bits "
+                                 f"{log.bits_per_user} break {rule}")
+        vals = [log.uplink_latency_s, log.cum_latency_s, log.test_acc,
+                log.mean_s]
+        if not all(math.isfinite(v) for v in vals):
+            raise AssertionError(f"{label} round {t}: non-finite log {log}")
+    if dict(LAUNCHES) != before:
+        raise AssertionError(f"{label}: the dense plane launched wire "
+                             "kernels")
+    for k, v in state.params.items():
+        if not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"{label}: non-finite params in {k}")
+    print(f"{label}: bits {rule} in every round")
+    return state.logs
+
+
+def baselines(dev):
+    """The paper's baselines at full width on the dense plane of
+    ``paper-table3``: each quantizer's ``batched`` on the card against the
+    CPU on one round's deltas; rounds of classic, top-q, LAQ and AQUILA
+    under bisection-LP, and of mixed-resolution(0.4, 4) under Dinkelbach
+    and max-sum-rate; then the Table III script in quick mode."""
+    import numpy as np
+    import torch
+    from _torch_parity import baseline_card_vs_cpu
+    from benchmarks import torch_table3_latency as t3
+    from repro_torch.core.quantize import make_quantizer
+    from repro_torch.sim import get_scenario
+    from repro_torch.sim.scenarios import build_problem
+    from repro_torch.sim.sweep import _make_engine
+
+    scn = dataclasses.replace(get_scenario("paper-table3"), T=ROUNDS,
+                              eval_every=1)
+    if scn.engine_config().wire.plane != "dense":
+        raise AssertionError("paper-table3 is registered on the dense plane")
+    problem = build_problem(scn)       # one problem, as run_grid builds
+    make = lambda q, pc, s=scn: _make_engine(s, problem, q, pc, dev)
+    eng = make(BASELINES["classic"], "bisection-lp")
+    state = eng.start_run()
+    flats = []
+    with torch.no_grad():
+        for _ in range(3):
+            xs, ys = eng.draw_minibatches(state)
+            flats.append(eng._batched_local(state.params, xs, ys))
+        print(f"three rounds' deltas from the card: {tuple(flats[0].shape)}")
+        for qlabel, (name, kw) in BASELINES.items():
+            t0 = time.perf_counter()
+            found = baseline_card_vs_cpu(lambda: make_quantizer(name, **kw),
+                                         flats if name == "laq" else flats[:1])
+            print(f"{qlabel} {kw}, card vs CPU: agree ({found}; "
+                  f"{time.perf_counter() - t0:.2f} s)")
+    del eng, state, flats
+
+    for qlabel, spec in BASELINES.items():
+        logs = drive_baseline(make(spec, "bisection-lp"), ROUNDS, qlabel,
+                              f"{qlabel}/bisection-lp")
+        if qlabel == "laq":
+            skips = sum(int(np.sum(l.bits_per_user == 0.0)) for l in logs)
+            print(f"laq skipped {skips} uploads in {ROUNDS} rounds of "
+                  f"{scn.K} users" if skips else
+                  f"laq did not skip in {ROUNDS} rounds of {scn.K} users "
+                  "(xi = 0.5 against the mean of 10 slots)")
+    mixed = ("mixed-resolution", {"lambda_": 0.4, "b": 4})
+    for plabel, pspec in BASELINE_POWERS.items():
+        drive_baseline(make(mixed, pspec, dataclasses.replace(scn, T=2)), 2,
+                       "mixed-resolution", f"mixed-resolution/{plabel}")
+
+    t0 = time.perf_counter()
+    out = ROOT / "runs" / "bench"
+    lines = t3.run(quick=True, device=dev, out=str(out))
+    for line in lines:
+        print("  " + line)
+    with open(out / "torch_table3.csv") as f:
+        rows = list(csv.DictReader(f))
+    if len(rows) != 12 or not all(
+            int(r["T_max"]) >= 1 and math.isfinite(float(r["mean_bits"]))
+            and float(r["mean_bits"]) > 0 for r in rows):
+        raise AssertionError(f"the Table III script's CSV is wrong: {rows}")
+    print(f"Table III script, quick mode: 12 cells, "
+          f"{time.perf_counter() - t0:.2f} s")
 
 
 def kv_inputs(B, Hkv, G, S, D, Dv, dtype, seed, device):
@@ -1447,6 +1616,11 @@ def main():
     if scn.engine_config().wire.plane != "dense":
         raise AssertionError("paper-table3 is registered on the dense plane")
     drive(make_engine(scn, q, "bisection-lp", device=dev), 1, none, "dense")
+
+    phase("baselines: classic, top-q, LAQ, AQUILA; Dinkelbach, max-sum-rate")
+    t0 = time.perf_counter()
+    baselines(dev)
+    print(f"baselines phase: {time.perf_counter() - t0:.2f} s")
 
     phase(f"serve path: full-width {SERVE['arch']}, B={SERVE['B']}, "
           f"prompt {SERVE['prompt']}, {SERVE['gen']} generated, cache "

@@ -42,14 +42,16 @@ class Quantizer:
         raise NotImplementedError
 
     # ------------------------------------------------ batched entry point
-    def init_batched_state(self, K: int, dim: int) -> Any:
-        """Stacked per-user state with a leading K axis (None when
-        stateless).  The default replicates init_state(dim) K times."""
+    def init_batched_state(self, K: int, dim: int, device=None) -> Any:
+        """Stacked per-user state with a leading K axis on ``device``
+        (None when stateless).  The default replicates init_state(dim)
+        K times, each user in storage of its own (not K views of one),
+        so no write to one user's state reaches another's."""
         state = self.init_state(dim)
         if state is None:
             return None
-        return tree_map(lambda x: x[None].expand((K,) + tuple(x.shape)),
-                        state)
+        return tree_map(lambda x: x.to(device or x.device)[None].repeat(
+            (K,) + (1,) * x.dim()), state)
 
     def batched(self, deltas: torch.Tensor, states: Any = None
                 ) -> Tuple[QuantResult, Any]:

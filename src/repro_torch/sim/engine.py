@@ -15,7 +15,12 @@ The port of ``repro.sim.engine.VectorizedFLEngine`` on its fused step
    * ``"signplane"`` — quantized per user (``Quantizer.batched``), the
      sign plane reduced through K4–K5 plus a dense correction
      (``repro_torch.dist.signplane_weighted_aggregate``);
-   * ``"dense"`` — quantized per user and reduced by one weighted sum;
+   * ``"dense"`` — quantized per user by any quantizer and reduced by
+     one weighted sum; a stateful quantizer (LAQ) carries its stacked
+     per-user state from round to round (``RunState.qstate``);
+
+   the packed and signplane planes carry the mixed-resolution wire
+   format and refuse every other quantizer;
 3. the host solves power control and accounts latency
    (:meth:`solve_uplink_host`, :meth:`finish_round`).
 
@@ -29,11 +34,12 @@ has no observability taps.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, NamedTuple, Optional
+from typing import Any, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 from torch.func import vmap
+from torch.utils._pytree import tree_map
 
 from repro_torch.core.channel import ChannelRealization, computation_latency
 from repro_torch.core.power.base import PowerController
@@ -102,6 +108,7 @@ class RunState:
     test_x: torch.Tensor
     test_y: torch.Tensor
     logs: List
+    qstate: Any = None             # stacked quantizer state (or None)
     cum_latency: float = 0.0
     rounds_done: int = 0
 
@@ -165,6 +172,8 @@ class VectorizedFLEngine:
         self.d = int(flat0.numel())
         if plane == "packed":
             check_packed_dim(self.d, where="the packed wire plane")
+        self.qstate = quantizer.init_batched_state(self.K, self.d,
+                                                   device=self.device)
         self.comp_lat = computation_latency(fl.L, fl.dataset_size_for_comp,
                                             self.K)
         # the datasets live on the device for the whole run; each round
@@ -185,31 +194,37 @@ class VectorizedFLEngine:
         return torch.cat([(local[k] - params[k]).reshape(K, -1)
                           for k in sorted(params)], dim=1)
 
-    def aggregate(self, flat: torch.Tensor):
-        """Stacked ``[K, d]`` deltas -> ``(agg [d], bits [K], aux)``, the
-        rho-weighted update on this engine's wire plane."""
+    def aggregate(self, flat: torch.Tensor, qstate: Any = None):
+        """Stacked ``[K, d]`` deltas and the quantizer's stacked state ->
+        ``(agg [d], bits [K], aux, new qstate)``, the rho-weighted update
+        on this engine's wire plane."""
         q, path, w = self.quantizer, self.wire_path_spec, self._weights
         if path.plane == "packed":
-            return mixed_res_wire_aggregate(flat, w, q.lambda_, q.b,
-                                            path=path)
-        res, _ = q.batched(flat)
+            agg, bits, aux = mixed_res_wire_aggregate(flat, w, q.lambda_,
+                                                      q.b, path=path)
+            return agg, bits, aux, qstate
+        res, qstate = q.batched(flat, qstate)
         if path.plane == "signplane":
             agg = signplane_weighted_aggregate(
                 flat, res.recon, res.aux["dw_q"], w, path=path)
         else:
             agg = torch.einsum("k,kd->d", w, res.recon)
-        return agg, res.bits, res.aux
+        return agg, res.bits, res.aux, qstate
 
-    def _fused_step(self, params, xs, ys):
+    def _fused_step(self, params, qstate, xs, ys):
         flat = self._batched_local(params, xs, ys)
-        agg, bits, aux = self.aggregate(flat)
+        agg, bits, aux, qstate = self.aggregate(flat, qstate)
         upd = unflatten_pytree(agg, self.spec)
-        return {k: params[k] + upd[k] for k in params}, bits, aux
+        return {k: params[k] + upd[k] for k in params}, qstate, bits, aux
 
     # ----------------------------------------------- round-stepping API
     def start_run(self) -> RunState:
+        """A fresh run: private copies of the initial params and
+        quantizer state, so a reused engine starts every run alike."""
         return RunState(
             params={k: v.clone() for k, v in self.params.items()},
+            qstate=None if self.qstate is None
+            else tree_map(torch.clone, self.qstate),
             chan=self.chan,
             rng=np.random.default_rng(self.fl.seed),
             test_x=torch.as_tensor(self.test.x, device=self.device),
@@ -231,7 +246,8 @@ class VectorizedFLEngine:
         reduce, param update.  Updates ``state`` in place."""
         xs, ys = self.draw_minibatches(state)
         with torch.no_grad():
-            state.params, bits, aux = self._fused_step(state.params, xs, ys)
+            state.params, state.qstate, bits, aux = self._fused_step(
+                state.params, state.qstate, xs, ys)
         mean_s = float(aux["s"].double().mean()) if "s" in aux else 0.0
         return RoundWork(t=t, bits_np=bits.double().cpu().numpy(),
                          active=np.ones(self.K), mean_s=mean_s)

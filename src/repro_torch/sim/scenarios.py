@@ -5,8 +5,9 @@ hyper-parameters, CFmMIMO network shape, engine behaviour) that
 ``build_problem`` turns into concrete engine inputs.  The dataclass is
 ``repro.sim.scenarios.Scenario`` field for field, so one scenario means
 the same run in both packages; the registry holds the entries the
-port runs, ``paper-table3``, ``signplane-wire`` and ``fused-wire``,
-each as the JAX package registers it.
+port runs (the paper's Tables II and III, ``hetero-data``,
+``signplane-wire`` and ``fused-wire``), each as the JAX package
+registers it.
 
 ``aggregation`` picks the wire plane: ``"dense"`` (``paper-table3``'s
 default), ``"signplane"`` and ``"wire"`` (the packed plane).  Cohorts,
@@ -182,10 +183,27 @@ def list_scenarios() -> List[str]:
 
 
 register_scenario(Scenario(
+    name="paper-table2",
+    description="Table II operating point: K=20, L=5, IID/convergence "
+                "(no latency simulation)",
+    M=None, T=100, K=20, batch_size=48))
+
+register_scenario(Scenario(
+    name="paper-table2-noniid",
+    description="Table II non-IID: Dirichlet(0.3) label skew",
+    M=None, T=100, K=20, partition="dirichlet", batch_size=48))
+
+register_scenario(Scenario(
     name="paper-table3",
     description="Table III operating point: K=40 non-IID over the "
                 "CFmMIMO uplink with a total-latency budget",
     K=40, T=60, partition="dirichlet", batch_size=32))
+
+register_scenario(Scenario(
+    name="hetero-data",
+    description="Zipf(1.3) shard sizes: heterogeneous per-user data "
+                "loads (Mahmoudi et al. style device heterogeneity)",
+    K=20, T=40, partition="powerlaw"))
 
 register_scenario(Scenario(
     name="signplane-wire",

@@ -1,19 +1,32 @@
-"""Run one (scenario, quantizer, power controller) simulation cell.
+"""Scenario x quantizer x power-controller sweep runner.
 
-``run_cell`` is ``repro.sim.sweep.run_cell`` on the port: it builds the
-scenario's problem, runs the engine and summarizes the round logs.
-The grid runners (``run_grid``, the batched phy driver) are not ported.
+``run_cell`` and ``run_grid`` are ``repro.sim.sweep``'s on the port:
+
+    from repro_torch.sim import run_grid
+    results = run_grid(["paper-table3"],
+                       quantizers={"mixed": ("mixed-resolution",
+                                             {"lambda_": 0.4, "b": 4}),
+                                   "laq": ("laq", {"b": 4, "xi": 0.5})},
+                       powers={"ours": "bisection-lp",
+                               "max-sum": "max-sum-rate"},
+                       quick=True, out_csv="runs/sweep.csv")
+
+Each cell runs the engine and summarizes its round logs
+(``repro_torch.sim.metrics``).  Quantizer and power specs are registry
+names (with optional kwargs) or ready instances.  The batched phy
+solve path (``phy_batched=True``) and the replicate axis are not
+ported.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Mapping, Optional, Tuple, Union
+from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
 
 from repro_torch.core.power import PowerController, make_power_controller
 from repro_torch.core.quantize import Quantizer, make_quantizer
 
 from .engine import VectorizedFLEngine
-from .metrics import summarize_logs
+from .metrics import summarize_logs, write_metrics_csv
 from .scenarios import Scenario, build_problem, get_scenario
 
 QuantSpec = Union[str, Tuple[str, Mapping[str, Any]], Quantizer]
@@ -51,16 +64,27 @@ class SweepResult:
     result: Any                    # FLResult
     summary: Dict[str, float]
 
+    def row(self) -> Dict[str, Any]:
+        return {"scenario": self.cell.scenario.name,
+                "quantizer": self.cell.quantizer_label,
+                "power": self.cell.power_label, **self.summary}
 
-def make_engine(scn: Scenario, quantizer: QuantSpec,
-                power: PowerSpec = None, *, device=None,
-                init_params=None) -> VectorizedFLEngine:
-    """The engine for one cell of ``scn`` (already scaled), ready to
-    ``run()`` or to step round by round."""
+
+def _resolve_scenario(scenario: Union[str, Scenario], quick: bool,
+                      latency_budget_s: Optional[float]) -> Scenario:
+    scn = get_scenario(scenario) if isinstance(scenario, str) else scenario
+    scn = scn.scaled(quick)
+    if latency_budget_s is not None:
+        scn = dataclasses.replace(scn, latency_budget_s=latency_budget_s)
+    return scn
+
+
+def _make_engine(scn: Scenario, problem, quantizer: QuantSpec,
+                 power: PowerSpec, device, init_params=None
+                 ) -> VectorizedFLEngine:
     from repro_torch.fl.loop import FLConfig
 
-    ecfg = scn.engine_config()
-    train, test, shards, model, chan = build_problem(scn)
+    train, test, shards, model, chan = problem
     fl = FLConfig(L=scn.L, T=scn.T, batch_size=scn.batch_size,
                   alpha=scn.lr, eval_every=scn.effective_eval_every,
                   latency_budget_s=scn.latency_budget_s, seed=scn.seed)
@@ -68,8 +92,26 @@ def make_engine(scn: Scenario, quantizer: QuantSpec,
     return VectorizedFLEngine(train, test, shards, model,
                               _make_quant(quantizer),
                               pc if chan is not None else None, chan, fl,
-                              engine=ecfg, device=device,
+                              engine=scn.engine_config(), device=device,
                               init_params=init_params)
+
+
+def make_engine(scn: Scenario, quantizer: QuantSpec,
+                power: PowerSpec = None, *, device=None,
+                init_params=None) -> VectorizedFLEngine:
+    """The engine for one cell of ``scn`` (already scaled), ready to
+    ``run()`` or to step round by round."""
+    return _make_engine(scn, build_problem(scn), quantizer, power, device,
+                        init_params)
+
+
+def _to_result(scn: Scenario, engine: VectorizedFLEngine, res,
+               labels: Tuple[str, str]) -> SweepResult:
+    qlabel = labels[0] or engine.quantizer.name
+    plabel = labels[1] or (engine.power.name if engine.power is not None
+                           else "none")
+    return SweepResult(cell=SweepCell(scn, qlabel, plabel), result=res,
+                       summary=summarize_logs(res.logs))
 
 
 def run_cell(scenario: Union[str, Scenario], quantizer: QuantSpec,
@@ -80,14 +122,49 @@ def run_cell(scenario: Union[str, Scenario], quantizer: QuantSpec,
              device=None) -> SweepResult:
     """Run one (scenario, quantizer, power) simulation cell on
     ``device`` (the card by default)."""
-    scn = get_scenario(scenario) if isinstance(scenario, str) else scenario
-    scn = scn.scaled(quick)
-    if latency_budget_s is not None:
-        scn = dataclasses.replace(scn, latency_budget_s=latency_budget_s)
+    scn = _resolve_scenario(scenario, quick, latency_budget_s)
     engine = make_engine(scn, quantizer, power, device=device)
-    res = engine.run(verbose=verbose)
-    qlabel = labels[0] or engine.quantizer.name
-    plabel = labels[1] or (engine.power.name if engine.power is not None
-                           else "none")
-    return SweepResult(cell=SweepCell(scn, qlabel, plabel), result=res,
-                       summary=summarize_logs(res.logs))
+    return _to_result(scn, engine, engine.run(verbose=verbose), labels)
+
+
+def run_grid(scenarios: List[Union[str, Scenario]],
+             quantizers: Mapping[str, QuantSpec],
+             powers: Optional[Mapping[str, PowerSpec]] = None,
+             quick: bool = True, out_csv: Optional[str] = None,
+             latency_budget_s: Optional[float] = None,
+             verbose: bool = False, device=None,
+             phy_batched: bool = False,
+             replicates: Optional[int] = None) -> List[SweepResult]:
+    """Run the full scenario x quantizer x power grid on ``device`` (the
+    card by default).
+
+    Within a scenario the problem (dataset, partition, channel) is
+    built once and each quantizer's engine is reused across the power
+    axis: power control runs on the host, so only ``engine.power``
+    changes, and every run starts from the engine's initial params and
+    quantizer state."""
+    if phy_batched or replicates is not None:
+        raise NotImplementedError(
+            "the batched phy solve path and the replicate axis "
+            "(phy_batched=True, replicates) are not ported to repro_torch "
+            "yet")
+    powers = powers if powers is not None else {"none": None}
+    results: List[SweepResult] = []
+    for scenario in scenarios:
+        scn = _resolve_scenario(scenario, quick, latency_budget_s)
+        problem = build_problem(scn)
+        chan = problem[4]
+        for qlabel, qspec in quantizers.items():
+            engine = None
+            for plabel, pspec in powers.items():
+                if engine is None:
+                    engine = _make_engine(scn, problem, qspec, pspec, device)
+                else:
+                    pc = _make_power(pspec)
+                    engine.power = pc if chan is not None else None
+                results.append(_to_result(
+                    scn, engine, engine.run(verbose=verbose),
+                    (qlabel, plabel)))
+    if out_csv:
+        write_metrics_csv([r.row() for r in results], out_csv)
+    return results

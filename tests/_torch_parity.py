@@ -1,5 +1,9 @@
-"""Card-versus-CPU comparison of one engine round, stage by stage (no
-jax here: the GPU tests import it on a machine without jax)."""
+"""Card-versus-CPU comparison of one engine round, stage by stage, and
+of the baseline quantizers, with the baselines' payload rules (no jax
+here: the GPU tests and ``chip_smoke.py`` import it on a machine
+without jax)."""
+import math
+
 import numpy as np
 import torch
 
@@ -53,7 +57,7 @@ def card_vs_cpu_rounds(make, rounds: int):
             train_err = float((fg.cpu() - fc).abs().max() / fc.abs().max())
             runs = []
             for eng, flat in ((g, fg), (c, fg.cpu())):
-                agg, bits, _ = eng.aggregate(flat)
+                agg, bits, _, _ = eng.aggregate(flat)
                 runs.append((wire_of(eng, flat), agg, bits, flat))
             upd = unflatten_pytree(runs[0][1], g.spec)
             gs.params = {k: gs.params[k] + upd[k] for k in gs.params}
@@ -97,3 +101,105 @@ def assert_trajectory_close(got: dict, want: dict, flips: int,
         return
     assert (diff > atol).mean() <= 1e-3, (diff > atol).mean()
     assert diff.max() <= 2 * rounds * L * alpha, diff.max()
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bitwise equality of two tensors of any dtype (moved to the
+    CPU): floats compare by their bit patterns, so -0.0 != 0.0 and a
+    NaN equals the same NaN."""
+    a, b = a.detach().cpu().contiguous(), b.detach().cpu().contiguous()
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+        a, b = a.view(ints[a.element_size()]), b.view(ints[b.element_size()])
+    return torch.equal(a, b)
+
+
+def baseline_card_vs_cpu(make, flats):
+    """One baseline quantizer's ``batched`` on the card against the same
+    call on the CPU, on the card deltas ``flats`` (a list of ``[K, d]``
+    tensors); ``make()`` builds the quantizer.  Raises AssertionError on
+    any disagreement; returns what was found.
+
+    * classic, top-q: recon, bits and aux bit for bit on ``flats[0]``;
+    * AQUILA: the same ``b_selected`` except where a candidate's error
+      lies within 1e-6 of ``tol``; where ``b`` agrees, recon and bits
+      bit for bit;
+    * LAQ: one call per element of ``flats``, both sides from the card's
+      state (the CPU's is resynced after each call).  recon and bits bit
+      for bit wherever the skip decisions agree; a decision may differ
+      only where ``|energy - xi * hist| <= 1e-5 * hist``."""
+    from repro_torch.core.quantize.laq import _uniform_quantize
+
+    qc, qp = make(), make()
+    K, d = flats[0].shape
+    found = {"flips": 0}
+    if qc.name != "laq":
+        rc, _ = qc.batched(flats[0])
+        rp, _ = qp.batched(flats[0].cpu())
+        same = torch.ones(K, dtype=torch.bool)
+        if qc.name == "aquila":
+            bc, bp = rc.aux["b_selected"].cpu(), rp.aux["b_selected"]
+            same = bc == bp
+            for k in torch.nonzero(~same).flatten().tolist():
+                x = flats[0][k].cpu()
+                c = _uniform_quantize(x, int(min(bc[k], bp[k])))
+                err = float((c - x).double().norm() / x.double().norm())
+                tol = float(np.float32(qc.tol))
+                assert abs(err - tol) <= 1e-6, (k, err, tol)
+            found["flips"] = int((~same).sum())
+            found["b_selected"] = bc.tolist()
+        for k in torch.nonzero(same).flatten().tolist():
+            assert same_bits(rc.recon[k], rp.recon[k]), (qc.name, k)
+            assert same_bits(rc.bits[k], rp.bits[k]), (qc.name, k)
+        if qc.name != "aquila":
+            for key in rp.aux:
+                assert same_bits(rc.aux[key], rp.aux[key]), (qc.name, key)
+        return found
+    sc = qc.init_batched_state(K, d, device=flats[0].device)
+    energy_rel, skips = 0.0, 0
+    for flat in flats:
+        hist = sc.energies.double().mean(dim=1).cpu()
+        sp = type(sc)(*(s.cpu() for s in sc))
+        rc, sc = qc.batched(flat, sc)
+        rp, sp = qp.batched(flat.cpu(), sp)
+        kc, kp = rc.aux["skipped"].cpu(), rp.aux["skipped"]
+        energy = rc.aux["energy"].double().cpu()
+        for k in torch.nonzero(kc != kp).flatten().tolist():
+            assert abs(energy[k] - qc.xi * hist[k]) <= 1e-5 * hist[k], k
+        found["flips"] += int((kc != kp).sum())
+        skips += int(kc.sum())
+        for k in torch.nonzero(kc == kp).flatten().tolist():
+            assert same_bits(rc.recon[k], rp.recon[k]), ("laq", k)
+            assert same_bits(rc.bits[k], rp.bits[k]), ("laq", k)
+            assert same_bits(sc.last_sent[k], sp.last_sent[k]), ("laq", k)
+            assert same_bits(sc.ptr[k], sp.ptr[k]), ("laq", k)
+        rel = (sc.energies.double().cpu() - sp.energies.double()).abs() \
+            / sp.energies.double().abs().clamp_min(1e-300)
+        energy_rel = max(energy_rel, float(rel.max()))
+    found.update(skips=skips, energy_rel=energy_rel)
+    return found
+
+
+def payload_rule(qlabel: str, d: int):
+    """``(text, check)``: the payload each user's bits must equal at
+    dimension ``d`` under the Table III settings of quantizer
+    ``qlabel`` (top-q q = 0.01, LAQ b = 4, AQUILA b in [2, 8],
+    mixed-resolution b = 4); ``check`` maps a ``[K]`` array of one
+    round's bits to a boolean mask."""
+    k = math.ceil(0.01 * d)
+    topq = k * (32.0 + math.ceil(math.log2(d)))
+    rules = {
+        "classic": (f"32d = {32.0 * d:.0f}", lambda x: x == 32.0 * d),
+        "top-q": (f"k(32 + ceil(log2 d)) = {topq:.0f} (k = {k})",
+                  lambda x: x == topq),
+        "laq": (f"0 or 4d + 32 = {4.0 * d + 32:.0f}",
+                lambda x: (x == 0.0) | (x == 4.0 * d + 32.0)),
+        "aquila": ("d b + 32, b in [2, 8]", lambda x: np.isin(
+            x, [d * b + 32.0 for b in range(2, 9)])),
+        "mixed-resolution": (f"in [d + 32, 4d + 32] = [{d + 32}, "
+                             f"{4 * d + 32}]",
+                             lambda x: (x >= d + 32.0) & (x <= 4.0 * d + 32)),
+    }
+    return rules[qlabel]

@@ -7,6 +7,7 @@ modes it does not port, and its import isolation.  The signplane and
 dense planes' own parity with the JAX engine is
 ``tests/test_torch_signplane.py``."""
 import dataclasses
+import pathlib
 import subprocess
 import sys
 import textwrap
@@ -245,7 +246,7 @@ def test_planes_construct_and_dispatch(plane, monkeypatch):
     spy("signplane_weighted_aggregate")
     flat = torch.tensor(np.random.default_rng(3).standard_normal(
         (4, eng.d)).astype(np.float32))
-    agg, bits, _ = eng.aggregate(flat)
+    agg, bits, _, _ = eng.aggregate(flat)
     q, w = eng.quantizer, eng._weights
     res, _ = q.batched(flat)
     if plane == "packed":
@@ -275,7 +276,8 @@ def test_unported_model_and_replicates_raise():
 
 def test_registry_matches_jax_entries():
     from repro.sim import get_scenario as jget
-    for name in ("paper-table3", "signplane-wire", "fused-wire"):
+    for name in ("paper-table3", "signplane-wire", "fused-wire",
+                 "paper-table2", "paper-table2-noniid", "hetero-data"):
         a, b = dataclasses.asdict(jget(name)), dataclasses.asdict(
             get_scenario(name))
         a.pop("description"), b.pop("description")
@@ -287,12 +289,15 @@ def test_registry_matches_jax_entries():
 
 
 def test_port_imports_neither_jax_nor_repro():
-    """Every repro_torch module imports without jax or repro."""
+    """Every repro_torch module and the port's benchmark scripts import
+    without jax or repro."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         import repro_torch
         names = [m.name for m in pkgutil.walk_packages(
             repro_torch.__path__, "repro_torch.")]
+        names += ["benchmarks.torch_table2_accuracy",
+                  "benchmarks.torch_table3_latency"]
         for n in names:
             importlib.import_module(n)
         bad = sorted(m for m in sys.modules
@@ -301,21 +306,23 @@ def test_port_imports_neither_jax_nor_repro():
         assert not bad, bad
         print(len(names))
     """)
+    root = pathlib.Path(__file__).resolve().parents[1]
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, timeout=300)
+                         text=True, timeout=300, cwd=root)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 25
 
 
 def test_gpu_side_sources_import_neither_jax_nor_repro():
-    """chip_smoke.py and the GPU tests run where there is no jax: no
-    import of jax or repro anywhere in them or in the port."""
+    """chip_smoke.py, the GPU tests and the port's benchmark scripts run
+    where there is no jax: no import of jax or repro anywhere in them or
+    in the port."""
     import ast
-    import pathlib
 
     root = pathlib.Path(__file__).resolve().parents[1]
     files = [root / "chip_smoke.py", root / "tests" / "test_torch_gpu.py",
              root / "tests" / "_torch_parity.py",
+             *sorted((root / "benchmarks").glob("torch_*.py")),
              *sorted((root / "src" / "repro_torch").rglob("*.py"))]
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):

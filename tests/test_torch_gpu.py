@@ -14,16 +14,19 @@ to its plain PyTorch version on the same CUDA inputs — planes, headers,
 sign words and the reduces bit for bit; K6, whose sums run in another
 order, within 1e-5 (f32) and 2e-2 (bf16).  K5 also at scales of 0.0,
 -0.0, subnormals, +-inf and NaN, at G from 1 to 1000 and replayed from
-a CUDA graph; K1 and K2 past one launch of users (U = 65,536).
+a CUDA graph; K1 and K2 past one launch of users (U = 65,536).  The
+paper's baseline quantizers (classic, top-q, LAQ, AQUILA) on the card
+against the CPU, and their rounds on the card's dense plane.
 """
 import dataclasses
 
 import numpy as np
 import pytest
 import torch
-from _torch_parity import agg_tol, bits_equal, card_vs_cpu_rounds
+from _torch_parity import (agg_tol, baseline_card_vs_cpu, bits_equal,
+                           card_vs_cpu_rounds, payload_rule)
 
-from repro_torch.core.quantize import MixedResolutionQuantizer
+from repro_torch.core.quantize import MixedResolutionQuantizer, make_quantizer
 from repro_torch.kernels import LAUNCHES, WirePath, reset_launch_counts
 from repro_torch.kernels import mixed_res as mr
 from repro_torch.kernels import flash_decode as fd
@@ -389,6 +392,63 @@ def test_plane_round_on_card_matches_cpu(cuda, plane):
                         "signpack": 6 if sign else 0,
                         "sign_dequant_reduce": 4 if sign else 0,
                         "flash_decode": 0}
+
+
+# ------------------------------------------------- the paper's baselines
+BASELINES = {"classic": ("classic", {}), "top-q": ("top-q", {"q": 0.01}),
+             "laq": ("laq", {"b": 4, "xi": 0.5}),
+             "aquila": ("aquila", {"b_min": 2, "b_max": 8, "tol": 0.05})}
+
+
+@pytest.mark.parametrize("qlabel", list(BASELINES))
+def test_baseline_quantizer_on_card_matches_cpu(cuda, qlabel):
+    """``batched`` on the card against the CPU (``baseline_card_vs_cpu``):
+    classic and top-q bit for bit; AQUILA's b the same away from tol and
+    bit for bit where it agrees; LAQ over three calls on drifting deltas,
+    bit for bit where the skip decisions agree (they differ only on the
+    threshold)."""
+    name, kw = BASELINES[qlabel]
+    if name == "laq":            # Gaussian rows drifting by 2% a call
+        g = torch.Generator(device=cuda).manual_seed(1)
+        base = torch.randn((8, 65500), generator=g, device=cuda)
+        flats = [base + 0.02 * i * torch.randn(base.shape, generator=g,
+                                               device=cuda)
+                 for i in range(3)]
+    else:
+        flats = [deltas(0, 8, 65500, cuda)]
+    found = baseline_card_vs_cpu(lambda: make_quantizer(name, **kw), flats)
+    assert found["flips"] == 0
+    if name == "laq":
+        assert found["skips"] > 0 and found["energy_rel"] <= 1e-6
+
+
+@pytest.mark.parametrize("qlabel", list(BASELINES) + ["dinkelbach",
+                                                      "max-sum-rate"])
+def test_baseline_rounds_on_card(cuda, qlabel):
+    """Two full-width rounds of a tiny paper-table3 on the card's dense
+    plane for each baseline (bisection-LP), and for mixed-resolution under
+    each benchmark power controller: each user's bits follow the
+    quantizer's payload rule, LAQ's state lives on the card, no wire
+    kernel launches and every param stays finite."""
+    scn = dataclasses.replace(
+        get_scenario("paper-table3"), K=4, T=2, n_train=160, n_test=40,
+        batch_size=8, L=1, M=4, N=2, eval_every=1)
+    if qlabel in BASELINES:
+        q, pc = BASELINES[qlabel], "bisection-lp"
+    else:
+        q, pc = ("mixed-resolution", {"lambda_": 0.4, "b": 4}), qlabel
+    eng = make_engine(scn, q, pc, device=cuda)
+    reset_launch_counts()
+    res = eng.run()
+    assert all(v == 0 for v in LAUNCHES.values()), LAUNCHES
+    rule, ok = payload_rule(q[0], eng.d)
+    for log in res.logs:
+        assert np.all(ok(log.bits_per_user)), (rule, log.bits_per_user)
+        assert np.isfinite(log.cum_latency_s) and log.cum_latency_s > 0
+    if qlabel == "laq":
+        assert eng.qstate.last_sent.device.type == "cuda"
+    for v in res.params.values():
+        assert bool(torch.isfinite(v).all())
 
 
 # ---------------------------------------------------------------- K6

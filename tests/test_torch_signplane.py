@@ -422,7 +422,7 @@ def test_jax_round1_deltas_through_port_aggregate(both_runs):
             jnp.asarray(flat), jres.recon, jres.aux["dw_q"], jnp.asarray(w))
     else:
         want = jnp.einsum("k,kd->d", jnp.asarray(w), jres.recon)
-    agg, bits, aux = teng.aggregate(torch.tensor(flat))
+    agg, bits, aux, _ = teng.aggregate(torch.tensor(flat))
     np.testing.assert_array_equal(bits.numpy(), np.asarray(jres.bits))
     for key in ("dbar", "dw_q"):
         np.testing.assert_array_equal(aux[key].numpy(),
@@ -461,7 +461,7 @@ def test_signplane_rejects_non_mixed_quantizer():
                              engine=EngineConfig(wire=WirePath(plane="dense")),
                              device="cpu")
     flat = torch.randn(4, eng.d)
-    agg, bits, _ = eng.aggregate(flat)
+    agg, bits, _, _ = eng.aggregate(flat)
     torch.testing.assert_close(agg, eng._weights @ flat, rtol=0, atol=1e-6)
     assert eng.run().rounds_completed == 1
 

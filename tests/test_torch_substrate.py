@@ -69,7 +69,7 @@ def test_channel_and_power_are_identical():
     assert isinstance(make_power_controller("bisection-lp"),
                       BisectionLPPowerControl)
     with pytest.raises(KeyError, match="bisection-lp"):
-        make_power_controller("dinkelbach")
+        make_power_controller("water-filling")
 
 
 # ------------------------------------------------------------- model
@@ -167,6 +167,6 @@ def test_quantizer_registry():
     assert (q.name, q.lambda_, q.b) == ("mixed-resolution", 0.3, 6)
     assert q.error_bound() == jbound(0.3, 6)
     with pytest.raises(KeyError, match="mixed-resolution"):
-        make_quantizer("classic")
+        make_quantizer("qsgd")
     with pytest.raises(ValueError):
         make_quantizer("mixed-resolution", lambda_=1.5)
