@@ -46,16 +46,28 @@
    read just after: 3 rounds on the packed wire plane (K1–K3), 3 on the
    signplane plane (K4–K5), and 1 on the dense plane as registered;
    then a stage breakdown of one packed and one signplane round;
-7. the paper's baselines on the dense plane at full width: on one
+7. the engine's other single-trajectory modes at full width: 2 rounds
+   of ``paper-table3`` in the exact mode (users trained one by one
+   inside ``deterministic_cudnn``, after two identical per-user calls
+   are compared under the default cuDNN flags and inside it), each
+   round's wall time and stage split, bit for bit ``run_fl_sequential``
+   from the same init; ``churn-0.7`` (K=20) 3 rounds each on the packed
+   and signplane planes and on the dense plane with LAQ, the counters
+   zeroed before each plane and read after, every K3 and K5 launch held
+   bit for bit to its plain version on the same inputs (absent users'
+   weights and scales 0) and LAQ's absent users' state unchanged; and 3
+   rounds of ``monte-carlo-channel``, a channel a round equal to the
+   host's ``make_channel`` and an uplink that changes;
+8. the paper's baselines on the dense plane at full width: on one
    round's deltas (``[40, 462410]``) each of classic, top-q, LAQ (three
    successive calls) and AQUILA on the card against the CPU
-   (``tests/_torch_parity.baseline_card_vs_cpu``); 3 rounds each of
+   (``tests/_torch_parity.baseline_card_vs_cpu``); 2 rounds each of
    classic, top-q, LAQ and AQUILA under bisection-LP and 2 of
    mixed-resolution(0.4, 4) under Dinkelbach and max-sum-rate, each
    round's wall time, stage split and peak memory printed and each
    user's bits held to the quantizer's payload rule; then the Table III
    script (``benchmarks/torch_table3_latency.py``) in quick mode;
-8. serves full-width granite-3-8b (random bf16 weights from a seed, 40
+9. serves full-width granite-3-8b (random bf16 weights from a seed, 40
    layers): B=8 prompts of 16 tokens, 48 generated, a 4096-position
    cache, with the launch counters zeroed just before — 40 K6 launches
    a step — printing ms/step, tokens/s and peak memory, and holds
@@ -64,8 +76,9 @@
    with random k/v), timing the steps and their device time by kernel,
    and holds one such step's logits through K6 against the same step
    with K6's plain version in its place; then times decode at a short
-   context and at the nearly full cache in turns, three of each;
-9. prints one ``{"kernels": [...]}`` JSON line (K1–K6), and ends with
+   context and at the nearly full cache in turns, two of each;
+10. prints one ``{"kernels": [...]}`` JSON line (K1–K6; K1–K5's
+   launches over the main path's rounds and the churn rounds), and ends with
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, before printing any result, without a CUDA device or
@@ -87,6 +100,10 @@ sys.path.insert(1, str(ROOT / "tests"))      # _torch_parity (no jax)
 
 MAIN = dict(U=40, d=462410, b=10, lam=0.2)
 ROUNDS = 3
+# earlier paths cut to keep the run within PR 17's length: the baselines'
+# rounds each, and the decode turns at each length
+BASELINE_ROUNDS = 2
+DECODE_TURNS = 2
 # K1 and K2 past one launch of users (65,535 a launch)
 MANY_USERS = 65536
 # K5's battery: peer counts below, at and past a stage of 32 peers, row
@@ -101,6 +118,14 @@ BASELINES = {"classic": ("classic", {}),
              "top-q": ("top-q", {"q": 0.01}),
              "laq": ("laq", {"b": 4, "xi": 0.5}),
              "aquila": ("aquila", {"b_min": 2, "b_max": 8, "tol": 0.05})}
+# the engine's exact mode, churn and redraw phases (rounds each)
+EXACT_ROUNDS = 2
+CHURN_ROUNDS = 3
+CHURN_PLANES = {"packed": ("wire", ("mixed-resolution",
+                                    {"lambda_": 0.2, "b": 10})),
+                "signplane": ("signplane", ("mixed-resolution",
+                                            {"lambda_": 0.2, "b": 10})),
+                "dense/laq": ("dense", ("laq", {"b": 4, "xi": 0.5}))}
 BASELINE_POWERS = {"dinkelbach": ("dinkelbach", {"outer": 4, "inner": 15}),
                    "max-sum-rate": ("max-sum-rate", {"iters": 20,
                                                      "restarts": 0})}
@@ -149,8 +174,11 @@ NAMES = {"K1": "mixed_res_reduce", "K2": "mixed_res_emit",
          "K5": "sign_dequant_reduce", "K6": "flash_decode"}
 
 
+T0 = time.perf_counter()
+
+
 def phase(name):
-    print(f"== {name}", flush=True)
+    print(f"== [{time.perf_counter() - T0:.1f} s] {name}", flush=True)
 
 
 def card_line():
@@ -726,10 +754,12 @@ def round_breakdown(eng, state):
     print(f"  total {total:.6f} s")
 
 
-def timed_stages(eng):
+def timed_stages(eng, stages=None):
     """Wrap the engine's stages in place, each closed by a synchronize;
     returns the dict their seconds add up in (cleared by the caller a
-    round).  Aggregate minus batched quantize is the weighted sum."""
+    round).  ``stages`` is ``(object, method, label)`` triples; by
+    default the fused step's, where aggregate minus batched quantize is
+    the weighted sum."""
     import torch
     times = {}
 
@@ -745,11 +775,210 @@ def timed_stages(eng):
             return out
         setattr(obj, attr, run)
 
-    wrap(eng, "_batched_local", "local training")
-    wrap(eng.quantizer, "batched", "batched quantize")
-    wrap(eng, "aggregate", "aggregate")
-    wrap(eng, "solve_uplink_host", "host power solve")
+    for obj, attr, label in stages or (
+            (eng, "_batched_local", "local training"),
+            (eng.quantizer, "batched", "batched quantize"),
+            (eng, "aggregate", "aggregate"),
+            (eng, "solve_uplink_host", "host power solve")):
+        wrap(obj, attr, label)
     return times
+
+
+def exact_mode(dev):
+    """``paper-table3`` at full width in the engine's exact mode (K=40
+    users trained one by one through ``local_delta`` inside
+    ``deterministic_cudnn``, one batched quantize, the left-to-right
+    fold), ``EXACT_ROUNDS`` rounds with each round's wall time and stage
+    split, against ``run_fl_sequential`` on the card from the same init
+    params: bit for bit.  First, two identical per-user calls under the
+    default cuDNN flags and inside ``deterministic_cudnn``."""
+    import numpy as np
+    import torch
+    from _torch_parity import run_mismatches, same_bits
+    from repro_torch.fl.cnn import init_cnn
+    from repro_torch.fl.loop import (deterministic_cudnn, local_delta,
+                                     run_fl_sequential)
+    from repro_torch.sim import get_scenario
+    from repro_torch.sim.scenarios import build_problem
+    from repro_torch.sim.sweep import _make_engine
+
+    scn = dataclasses.replace(get_scenario("paper-table3"), fused=False,
+                              T=EXACT_ROUNDS, eval_every=1)
+    problem = build_problem(scn)
+    train, test, shards, cfg, chan = problem
+    init = init_cnn(torch.Generator().manual_seed(0), cfg)
+    q = ("mixed-resolution", {"lambda_": MAIN["lam"], "b": MAIN["b"]})
+    eng = _make_engine(scn, problem, q, "bisection-lp", dev,
+                       init_params=init)
+    if eng.engine_cfg.effective_fused or eng.d != MAIN["d"]:
+        raise AssertionError("expected the exact mode at full width")
+
+    state = eng.start_run()
+    xs, ys = eng.draw_minibatches(state)
+    fl, loss = eng.fl, eng.model_spec.loss
+    one = lambda: local_delta(state.params, xs[0], ys[0], fl.L, fl.alpha,
+                              loss)
+    with torch.no_grad():
+        loose = same_bits(one(), one())
+        with deterministic_cudnn():
+            firm = [same_bits(one(), one()) for _ in range(3)]
+    print(f"two identical per-user calls (user 0, L={fl.L}, batch "
+          f"{eng.take}): default cuDNN flags bit for bit {loose}; inside "
+          f"deterministic_cudnn {firm}")
+    if not all(firm):
+        raise AssertionError("deterministic_cudnn calls differ")
+    del xs, ys
+
+    times = timed_stages(eng, (
+        (eng, "_per_user_local", "per-user training"),
+        (eng.quantizer, "batched", "batched quantize"),
+        (eng, "_exact_step", "step"),
+        (eng, "solve_uplink_host", "host power solve")))
+    state = eng.start_run()
+    torch.cuda.synchronize()
+    for t in range(1, EXACT_ROUNDS + 1):
+        times.clear()
+        t0 = time.perf_counter()
+        work = eng.train_round(state, t)
+        uplink, per_user = eng.solve_uplink_host(state.chan, work.bits_np,
+                                                 work.active)
+        eng.finish_round(state, work, uplink, per_user_s=per_user)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        split = {k: times[k] for k in ("per-user training",
+                                       "batched quantize")}
+        split["fold and update"] = times["step"] - sum(split.values())
+        split["host power solve"] = times["host power solve"]
+        split["rest (draw, bits to host, eval)"] = \
+            wall - times["step"] - times["host power solve"]
+        log = state.logs[-1]
+        print(f"exact round {t}: wall {wall:.6f} s ("
+              + ", ".join(f"{k} {v:.6f}" for k, v in split.items())
+              + f"); mean bits {np.mean(log.bits_per_user):.1f}, uplink "
+              f"{log.uplink_latency_s:.6f} s, acc {log.test_acc:.4f}")
+    exact = eng.result(state)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seq = run_fl_sequential(train, test, shards, cfg, eng.quantizer,
+                            eng.power, chan, eng.fl, device=dev,
+                            init_params=init)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    bad = run_mismatches(exact, seq)
+    print(f"run_fl_sequential, {EXACT_ROUNDS} rounds from the same init: "
+          f"{secs:.3f} s; exact mode bit for bit (params, bits, latency, "
+          f"mean s, accuracy): {not bad}")
+    if bad:
+        raise AssertionError(f"the exact mode differs from "
+                             f"run_fl_sequential: {bad[:8]}")
+
+
+def churn(dev):
+    """``churn-0.7`` (K=20, participation 0.7) at full width for
+    ``CHURN_ROUNDS`` rounds on each of the packed and signplane planes
+    (mixed-resolution(0.2, 10)) and the dense plane with LAQ, each with
+    the launch counters zeroed just before and read just after
+    (``_torch_parity.churn_rounds``): every K3 and K5 launch bit for bit
+    its plain version on the same inputs, absent users' weights and
+    scales exactly 0, LAQ's absent users' state unchanged, absent users'
+    bits and latencies 0.  Prints each round's active count, sub-channel
+    uplink and wall time; returns the launch counts by plane."""
+    import torch
+    from _torch_parity import churn_rounds
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.sim import get_scenario, make_engine
+
+    expect = {"packed": ("mixed_res_reduce", "mixed_res_emit",
+                         "mixed_res_dequant_reduce"),
+              "signplane": ("signpack", "sign_dequant_reduce"),
+              "dense/laq": ()}
+    counts = {}
+    for label, (agg, q) in CHURN_PLANES.items():
+        scn = dataclasses.replace(get_scenario("churn-0.7"), aggregation=agg,
+                                  T=CHURN_ROUNDS, eval_every=1)
+        eng = make_engine(scn, q, "bisection-lp", device=dev)
+        if eng.d != MAIN["d"] or eng.engine_cfg.participation != 0.7:
+            raise AssertionError("expected churn-0.7 at full width")
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        absent, checked = 0, {}
+        for work, log, info in churn_rounds(eng, CHURN_ROUNDS):
+            absent += eng.K - info["active"]
+            for k, v in info["calls"].items():
+                checked[k] = checked.get(k, 0) + v
+            on = work.bits_np[work.active > 0]
+            print(f"churn {label} round {log.round}: active "
+                  f"{info['active']} of {eng.K}, sub-channel uplink "
+                  f"{log.uplink_latency_s:.6f} s, bits of the active "
+                  f"{on.min():.0f}..{on.max():.0f}, acc "
+                  f"{log.test_acc:.4f}, wall {info['wall']:.6f} s, "
+                  f"K3/K5 launches held to their plain versions "
+                  f"{info['calls']}")
+            if not math.isfinite(log.cum_latency_s) or log.cum_latency_s <= 0:
+                raise AssertionError(f"churn {label}: bad log {log}")
+        torch.cuda.synchronize()
+        got = dict(LAUNCHES)
+        want = {k: CHURN_ROUNDS if k in expect[label] else 0 for k in got}
+        if got != want:
+            raise AssertionError(f"churn {label}: launches {got}, expected "
+                                 f"{want}")
+        if absent == 0:
+            raise AssertionError(f"churn {label}: no user was absent")
+        spied = {"packed": "mixed_res_dequant_reduce",
+                 "signplane": "sign_dequant_reduce"}.get(label)
+        if spied and checked.get(spied) != CHURN_ROUNDS:
+            raise AssertionError(f"churn {label}: checked {checked}")
+        print(f"churn {label}: {absent} absent uploads over "
+              f"{CHURN_ROUNDS} rounds; launches {got}; K3 and K5 bit for "
+              f"bit their plain versions at absent users' zero weights "
+              f"and scales; absent users' quantizer state unchanged")
+        counts[label] = got
+        del eng
+    return counts
+
+
+def redraws(dev):
+    """``monte-carlo-channel`` (K=20, a new large-scale realization every
+    round) at full width, 3 rounds on its dense plane: each round's
+    channel arrays equal ``make_channel(cfg, seed=channel_seed + t)``
+    computed apart on the host (the scenario's own channel in round 1),
+    and the uplink differs from round to round."""
+    import numpy as np
+    import torch
+    from repro_torch.core.channel import make_channel
+    from repro_torch.sim import get_scenario, make_engine
+
+    scn = dataclasses.replace(get_scenario("monte-carlo-channel"), T=3,
+                              eval_every=1)
+    eng = make_engine(scn, ("mixed-resolution", {"lambda_": 0.2, "b": 10}),
+                      "bisection-lp", device=dev)
+    state = eng.start_run()
+    uplinks = []
+    for t in range(1, scn.T + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        work = eng.train_round(state, t)
+        uplink, per_user = eng.solve_uplink_host(state.chan, work.bits_np,
+                                                 work.active)
+        eng.finish_round(state, work, uplink, per_user_s=per_user)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        want = eng.chan if t == 1 else make_channel(
+            eng.chan.cfg, seed=eng.engine_cfg.channel_seed + t)
+        same = all(np.array_equal(getattr(state.chan, f), getattr(want, f))
+                   for f in ("beta", "pilot", "gamma", "A_bar", "B_bar",
+                             "B_tilde", "I_M"))
+        uplinks.append(uplink)
+        print(f"redraw round {t}: channel seed "
+              f"{scn.seed if t == 1 else eng.engine_cfg.channel_seed + t}, "
+              f"arrays equal the host's make_channel {same}, sum A_bar "
+              f"{float(state.chan.A_bar.sum()):.6e}, uplink {uplink:.6f} s, "
+              f"acc {state.logs[-1].test_acc:.4f}, wall {wall:.6f} s")
+        if not same:
+            raise AssertionError(f"redraw round {t}: channel differs")
+    if len(set(uplinks)) != len(uplinks):
+        raise AssertionError(f"the uplink did not change: {uplinks}")
 
 
 def drive_baseline(eng, rounds, qlabel, label):
@@ -847,13 +1076,15 @@ def baselines(dev):
     del eng, state, flats
 
     for qlabel, spec in BASELINES.items():
-        logs = drive_baseline(make(spec, "bisection-lp"), ROUNDS, qlabel,
+        logs = drive_baseline(make(spec, "bisection-lp"), BASELINE_ROUNDS,
+                              qlabel,
                               f"{qlabel}/bisection-lp")
         if qlabel == "laq":
             skips = sum(int(np.sum(l.bits_per_user == 0.0)) for l in logs)
-            print(f"laq skipped {skips} uploads in {ROUNDS} rounds of "
-                  f"{scn.K} users" if skips else
-                  f"laq did not skip in {ROUNDS} rounds of {scn.K} users "
+            n = BASELINE_ROUNDS
+            print(f"laq skipped {skips} uploads in {n} rounds of {scn.K} "
+                  "users" if skips else
+                  f"laq did not skip in {n} rounds of {scn.K} users "
                   "(xi = 0.5 against the mean of 10 slots)")
     mixed = ("mixed-resolution", {"lambda_": 0.4, "b": 4})
     for plabel, pspec in BASELINE_POWERS.items():
@@ -1378,7 +1609,7 @@ def serve_full_width(dev):
     del cache, lg, dec, fwd
     torch.cuda.empty_cache()
     serve_long_context(params, cfg, prompts)
-    alternate_lengths(params, cfg, prompts)
+    alternate_lengths(params, cfg, prompts, turns=DECODE_TURNS)
     del params
     torch.cuda.empty_cache()
     return counts["flash_decode"]
@@ -1616,6 +1847,21 @@ def main():
     if scn.engine_config().wire.plane != "dense":
         raise AssertionError("paper-table3 is registered on the dense plane")
     drive(make_engine(scn, q, "bisection-lp", device=dev), 1, none, "dense")
+
+    phase(f"exact mode: {EXACT_ROUNDS} rounds of paper-table3 (K=40) "
+          "against run_fl_sequential")
+    exact_mode(dev)
+
+    phase(f"churn-0.7 (K=20): {CHURN_ROUNDS} rounds each on the packed, "
+          "signplane and dense (LAQ) planes")
+    for counts in churn(dev).values():
+        for k in ("mixed_res_reduce", "mixed_res_emit",
+                  "mixed_res_dequant_reduce", "signpack",
+                  "sign_dequant_reduce"):
+            launches[k] += counts[k]
+
+    phase("monte-carlo-channel (K=20): 3 rounds, a new channel a round")
+    redraws(dev)
 
     phase("baselines: classic, top-q, LAQ, AQUILA; Dinkelbach, max-sum-rate")
     t0 = time.perf_counter()

@@ -8,6 +8,7 @@ from .base import QuantResult, Quantizer, flatten_pytree, unflatten_pytree
 from .classic import ClassicQuantizer
 from .laq import LAQQuantizer, LAQState, laq_quantize
 from .mixed_resolution import (MixedResolutionQuantizer, lemma1_bound,
+                               lemma1_bound_realized,
                                mixed_resolution_quantize)
 from .topq import TopQQuantizer, topq_quantize
 
@@ -30,5 +31,5 @@ __all__ = ["AquilaQuantizer", "ClassicQuantizer", "LAQQuantizer",
            "LAQState", "MixedResolutionQuantizer", "QUANTIZERS",
            "QuantResult", "Quantizer", "TopQQuantizer", "aquila_quantize",
            "flatten_pytree", "laq_quantize", "lemma1_bound",
-           "make_quantizer", "mixed_resolution_quantize", "topq_quantize",
-           "unflatten_pytree"]
+           "lemma1_bound_realized", "make_quantizer",
+           "mixed_resolution_quantize", "topq_quantize", "unflatten_pytree"]

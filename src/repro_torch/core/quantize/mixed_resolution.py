@@ -41,6 +41,19 @@ def lemma1_bound(lambda_: float, b: int) -> float:
     return max(lo, hi)
 
 
+def lemma1_bound_realized(lambda_: float, b: int, rho: float) -> float:
+    """Corrected Lemma 1 constant given ``rho = dw_q / ||x||_inf``,
+    valid whatever the gap at the threshold (see the JAX module):
+
+    * high-res: ``|eps| <= (1 - rho) / (2 (2^b - 1)) ||x||_inf``;
+    * low-res:  ``|eps| <= max(rho / 2, lambda - rho / 2) ||x||_inf``.
+
+    Reduces to eq. (9)'s low branch when ``rho == lambda`` (no gap)."""
+    hi = (1.0 - rho) / (2.0 * (2 ** b - 1))
+    lo = max(rho / 2.0, lambda_ - rho / 2.0)
+    return max(lo, hi)
+
+
 def mixed_resolution_quantize(delta: torch.Tensor, lambda_: float, b: int
                               ) -> QuantResult:
     """Quantize one flat vector; batchable under ``torch.func.vmap``.

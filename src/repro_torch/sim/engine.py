@@ -1,35 +1,49 @@
-"""Vectorized FL-over-CFmMIMO engine — all K users in one step per round.
+"""Vectorized FL-over-CFmMIMO engine — the port of
+``repro.sim.engine.VectorizedFLEngine``'s single-trajectory modes.
 
-The port of ``repro.sim.engine.VectorizedFLEngine`` on its fused step
-(``EngineConfig(fused=True)``) over the three wire planes of
-:class:`WirePath`.  One round:
+Execution modes (:class:`EngineConfig`):
 
-1. the K users' minibatches are drawn on the host (numpy, the JAX
-   engine's stream and draw order) and their L local AdaGrad steps run
-   as one ``torch.func.vmap`` over the users — cuDNN/cuBLAS on the card;
-2. the stacked ``[K, d]`` deltas become one rho-weighted update
-   (:meth:`VectorizedFLEngine.aggregate`), by plane:
+* exact (``fused=False``, the default — what :func:`repro_torch.fl.run_fl`
+  runs): each user's L local AdaGrad steps run through the same
+  per-user call as :func:`repro_torch.fl.run_fl_sequential`
+  (``local_delta``), then one batched quantize of the stacked ``[K, d]``
+  deltas and the sequential loop's left-to-right fold ``agg = term``,
+  ``agg + term`` of ``recon_j * w_j``.  Bit for bit
+  ``run_fl_sequential`` on the same device.  ``torch.func.vmap`` over
+  users would batch the conv backward another way and is not bit for
+  bit the per-user call (``tests/test_torch_exact.py``);
+* fused (``fused=True``, or a packed or signplane plane — what the
+  scenario sweeps run): the users' local runs as one ``vmap`` (cuDNN /
+  cuBLAS on the card), then one rho-weighted update
+  (:meth:`VectorizedFLEngine.aggregate`) by wire plane:
 
-   * ``"packed"`` — encoded to packed planes (K1, the scalar epilogue,
-     K2) and decoded into the update (K3), no dense reconstruction;
-   * ``"signplane"`` — quantized per user (``Quantizer.batched``), the
-     sign plane reduced through K4–K5 plus a dense correction
-     (``repro_torch.dist.signplane_weighted_aggregate``);
-   * ``"dense"`` — quantized per user by any quantizer and reduced by
-     one weighted sum; a stateful quantizer (LAQ) carries its stacked
-     per-user state from round to round (``RunState.qstate``);
+  * ``"packed"`` — encoded to packed planes (K1, the scalar epilogue,
+    K2) and decoded into the update (K3), no dense reconstruction;
+  * ``"signplane"`` — quantized per user (``Quantizer.batched``), the
+    sign plane reduced through K4–K5 plus a dense correction
+    (``repro_torch.dist.signplane_weighted_aggregate``);
+  * ``"dense"`` — quantized per user by any quantizer and reduced by
+    one weighted sum;
 
-   the packed and signplane planes carry the mixed-resolution wire
-   format and refuse every other quantizer;
-3. the host solves power control and accounts latency
-   (:meth:`solve_uplink_host`, :meth:`finish_round`).
+  the packed and signplane planes carry the mixed-resolution wire
+  format and refuse every other quantizer.
+
+In both modes a stateful quantizer (LAQ) carries its stacked per-user
+state from round to round (``RunState.qstate``), and the host solves
+power control and accounts latency (:meth:`solve_uplink_host`,
+:meth:`finish_round`).  Beyond the paper's fixed setting the engine
+simulates user churn (``participation < 1``: each round a fresh
+never-empty active set, weights ``rho * active`` renormalized, absent
+users' quantizer state frozen, their bits 0, and the power solved on
+the active users' sub-channel; the wire kernels still encode every
+user and fold the absent ones at weight 0) and Monte-Carlo channel
+redraws (a fresh realization every ``redraw_channel_every`` rounds).
 
 Modes of the JAX engine that are not ported raise
-:class:`NotImplementedError`: the exact mode (``fused=False``),
-cohorts, clusters, budgets and the checksum (all on
-:class:`WirePath`), churn (``participation < 1``), channel redraws,
-async rounds, the mesh, resilience and the replicate axis.  The port
-has no observability taps.
+:class:`NotImplementedError`: cohorts, clusters, budgets and the
+checksum (all on :class:`WirePath`), async rounds, the mesh,
+resilience and the replicate axis.  The port has no observability
+taps.
 """
 from __future__ import annotations
 
@@ -41,7 +55,8 @@ import torch
 from torch.func import vmap
 from torch.utils._pytree import tree_map
 
-from repro_torch.core.channel import ChannelRealization, computation_latency
+from repro_torch.core.channel import (ChannelRealization, computation_latency,
+                                      make_channel)
 from repro_torch.core.power.base import PowerController
 from repro_torch.core.quantize import Quantizer
 from repro_torch.core.quantize.base import flatten_pytree, unflatten_pytree
@@ -55,26 +70,25 @@ from repro_torch.kernels.ops import mixed_res_wire_aggregate
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    """Engine knobs.  Only the fused step is ported, and it is the
-    default here (the JAX engine defaults to the exact mode); the wire
-    plane is ``wire.plane``; every knob of a mode not ported raises
+    """Engine knobs, as ``repro.sim.EngineConfig``: the exact mode by
+    default (``fused=False``), the wire plane in ``wire.plane``, churn
+    (``participation``) and channel redraws (``redraw_channel_every``
+    from ``channel_seed``).  The knobs of a mode not ported raise
     :class:`NotImplementedError`."""
-    wire: WirePath = dataclasses.field(default_factory=WirePath)
-    fused: bool = True
-    participation: float = 1.0
-    redraw_channel_every: int = 0
+    # the dense plane unless set, as JAX's EngineConfig() resolves its
+    # default aggregation="dense"
+    wire: WirePath = dataclasses.field(
+        default_factory=lambda: WirePath(plane="dense"))
+    fused: bool = False
+    participation: float = 1.0       # P(user active in a round) — churn
+    redraw_channel_every: int = 0    # 0 = fixed realization (paper)
+    channel_seed: int = 0            # base seed for Monte-Carlo redraws
     async_mode: bool = False
     mesh: Optional[object] = None
     resilience: Optional[object] = None
 
     def __post_init__(self):
-        if not self.fused:
-            raise NotImplementedError(
-                "the exact mode (fused=False) is not ported to repro_torch "
-                "yet; use fused=True")
-        unported = {"participation": (self.participation, 1.0),
-                    "redraw_channel_every": (self.redraw_channel_every, 0),
-                    "async_mode": (self.async_mode, False),
+        unported = {"async_mode": (self.async_mode, False),
                     "mesh": (self.mesh, None),
                     "resilience": (self.resilience, None)}
         for name, (value, off) in unported.items():
@@ -82,6 +96,11 @@ class EngineConfig:
                 raise NotImplementedError(
                     f"EngineConfig.{name}={value!r} is not ported to "
                     "repro_torch yet")
+
+    @property
+    def effective_fused(self) -> bool:
+        """The packed and signplane planes run only fused."""
+        return self.fused or self.wire.plane != "dense"
 
 
 class UplinkSolution(NamedTuple):
@@ -94,9 +113,9 @@ class UplinkSolution(NamedTuple):
 class RoundWork:
     """What one training round hands to the power-control stage."""
     t: int
-    bits_np: np.ndarray            # [K] payload bits
+    bits_np: np.ndarray            # [K] payload bits; 0 for absent users
     active: np.ndarray             # [K] 0/1 participation mask
-    mean_s: float                  # mean high-res fraction
+    mean_s: float                  # mean high-res fraction (active users)
 
 
 @dataclasses.dataclass
@@ -105,12 +124,38 @@ class RunState:
     params: dict
     chan: Optional[ChannelRealization]
     rng: np.random.Generator
+    part_rng: np.random.Generator  # the churn stream
     test_x: torch.Tensor
     test_y: torch.Tensor
     logs: List
     qstate: Any = None             # stacked quantizer state (or None)
     cum_latency: float = 0.0
     rounds_done: int = 0
+
+
+def _subchannel(chan: ChannelRealization, idx: np.ndarray
+                ) -> ChannelRealization:
+    """Restrict a realization to the active-user subset: inactive users
+    neither transmit (no power allocated, no interference) nor count
+    toward the straggler latency."""
+    cfg = dataclasses.replace(chan.cfg, K=len(idx))
+    return dataclasses.replace(
+        chan, cfg=cfg, beta=chan.beta[:, idx], pilot=chan.pilot[idx],
+        gamma=chan.gamma[:, idx], A_bar=chan.A_bar[idx],
+        B_bar=chan.B_bar[idx], B_tilde=chan.B_tilde[np.ix_(idx, idx)],
+        I_M=chan.I_M[idx])
+
+
+def ordered_weighted_sum(recon: torch.Tensor, weights: torch.Tensor
+                         ) -> torch.Tensor:
+    """``sum_j recon_j * weights_j`` folded left to right, ``agg =
+    term`` then ``agg + term``: one IEEE rounding a product and a sum,
+    the same bits on the CPU and on the card (the exact mode's fold)."""
+    agg = None
+    for j in range(recon.shape[0]):
+        term = recon[j] * weights[j]
+        agg = term if agg is None else agg + term
+    return agg
 
 
 def straggler_gap(per_user_s: np.ndarray, mask: np.ndarray) -> float:
@@ -122,7 +167,9 @@ def straggler_gap(per_user_s: np.ndarray, mask: np.ndarray) -> float:
 
 
 class VectorizedFLEngine:
-    """Algorithm 1 with all K users vectorized into one step per round.
+    """Algorithm 1 over K users a round: the exact mode trains them one
+    by one, the fused mode in one ``vmap`` step (see the module
+    docstring).
 
     ``device`` defaults to the card (``repro_torch.device``);
     ``init_params`` (a params dict, e.g. from
@@ -184,7 +231,8 @@ class VectorizedFLEngine:
     # ------------------------------------------------------------ step
     def _batched_local(self, params, xs, ys) -> torch.Tensor:
         """All stacked users' local AdaGrad runs -> [K, d] deltas, in
-        ``flatten_pytree``'s leaf order."""
+        ``flatten_pytree``'s leaf order: one ``vmap`` over the users
+        (the fused mode)."""
         from repro_torch.fl.loop import local_adagrad
 
         fl, loss = self.fl, self.model_spec.loss
@@ -194,28 +242,71 @@ class VectorizedFLEngine:
         return torch.cat([(local[k] - params[k]).reshape(K, -1)
                           for k in sorted(params)], dim=1)
 
-    def aggregate(self, flat: torch.Tensor, qstate: Any = None):
+    def _per_user_local(self, params, xs, ys) -> torch.Tensor:
+        """The exact mode's local runs -> [K, d] deltas: each user
+        through ``local_delta``, the sequential loop's own call, with
+        cuDNN's deterministic algorithms (``deterministic_cudnn``)."""
+        from repro_torch.fl.loop import deterministic_cudnn, local_delta
+
+        fl, loss = self.fl, self.model_spec.loss
+        with deterministic_cudnn():
+            return torch.stack([local_delta(params, xs[j], ys[j], fl.L,
+                                            fl.alpha, loss)
+                                for j in range(xs.shape[0])])
+
+    def _freeze_absent(self, new, old, active: Optional[torch.Tensor]):
+        """Absent users did not transmit: their quantizer state stays
+        ``old``.  ``active`` None means every user took part."""
+        if new is None or active is None:
+            return new
+        return tree_map(
+            lambda n, o: torch.where(
+                active.reshape((self.K,) + (1,) * (n.dim() - 1)) > 0, n, o),
+            new, old)
+
+    def aggregate(self, flat: torch.Tensor, qstate: Any = None,
+                  weights: Optional[torch.Tensor] = None,
+                  active: Optional[torch.Tensor] = None):
         """Stacked ``[K, d]`` deltas and the quantizer's stacked state ->
-        ``(agg [d], bits [K], aux, new qstate)``, the rho-weighted update
-        on this engine's wire plane."""
-        q, path, w = self.quantizer, self.wire_path_spec, self._weights
+        ``(agg [d], bits [K], aux, new qstate)``, the weighted update on
+        this engine's wire plane (the fused mode).  ``weights`` (f32
+        ``[K]``) default to rho; under churn an ``active`` mask freezes
+        absent users' state."""
+        q, path = self.quantizer, self.wire_path_spec
+        w = self._weights if weights is None else weights
         if path.plane == "packed":
             agg, bits, aux = mixed_res_wire_aggregate(flat, w, q.lambda_,
                                                       q.b, path=path)
             return agg, bits, aux, qstate
-        res, qstate = q.batched(flat, qstate)
+        res, new_qstate = q.batched(flat, qstate)
+        new_qstate = self._freeze_absent(new_qstate, qstate, active)
         if path.plane == "signplane":
             agg = signplane_weighted_aggregate(
                 flat, res.recon, res.aux["dw_q"], w, path=path)
         else:
             agg = torch.einsum("k,kd->d", w, res.recon)
-        return agg, res.bits, res.aux, qstate
+        return agg, res.bits, res.aux, new_qstate
 
-    def _fused_step(self, params, qstate, xs, ys):
+    def _fused_step(self, params, qstate, xs, ys, weights=None,
+                    active=None):
         flat = self._batched_local(params, xs, ys)
-        agg, bits, aux, qstate = self.aggregate(flat, qstate)
+        agg, bits, aux, qstate = self.aggregate(flat, qstate, weights,
+                                                active)
         upd = unflatten_pytree(agg, self.spec)
         return {k: params[k] + upd[k] for k in params}, qstate, bits, aux
+
+    def _exact_step(self, params, qstate, xs, ys, weights, active=None):
+        """The exact mode's round (``repro.sim.engine._dense_round``):
+        per-user training, one batched quantize, then the sequential
+        loop's left-to-right sum of ``recon_j * w_j`` (``weights`` f32
+        ``[K]``, each rounded once from float64) and the update."""
+        flat = self._per_user_local(params, xs, ys)
+        res, new_qstate = self.quantizer.batched(flat, qstate)
+        qstate = self._freeze_absent(new_qstate, qstate, active)
+        upd = unflatten_pytree(ordered_weighted_sum(res.recon, weights),
+                               self.spec)
+        return {k: params[k] + upd[k] for k in params}, qstate, \
+            res.bits, res.aux
 
     # ----------------------------------------------- round-stepping API
     def start_run(self) -> RunState:
@@ -227,6 +318,7 @@ class VectorizedFLEngine:
             else tree_map(torch.clone, self.qstate),
             chan=self.chan,
             rng=np.random.default_rng(self.fl.seed),
+            part_rng=np.random.default_rng((self.fl.seed, 0x5EED)),
             test_x=torch.as_tensor(self.test.x, device=self.device),
             test_y=torch.as_tensor(self.test.y, device=self.device),
             logs=[])
@@ -241,26 +333,69 @@ class VectorizedFLEngine:
         idx = torch.as_tensor(sel, device=self.device)
         return self._train_x[idx], self._train_y[idx]
 
+    def _draw_active(self, part_rng: np.random.Generator) -> np.ndarray:
+        """The round's 0/1 participation mask; never an empty round."""
+        p = self.engine_cfg.participation
+        if p >= 1.0:
+            return np.ones(self.K)
+        mask = part_rng.random(self.K) < p
+        if not mask.any():
+            mask[int(part_rng.integers(self.K))] = True
+        return mask.astype(np.float64)
+
+    def _round_weights(self, active: np.ndarray) -> np.ndarray:
+        """float64 ``rho * active`` renormalized (exactly rho without
+        churn)."""
+        if self.engine_cfg.participation >= 1.0:
+            return self.rho
+        w = self.rho * active
+        return w / w.sum()
+
     def train_round(self, state: RunState, t: int) -> RoundWork:
-        """Stages 1-2: minibatch draw, local training, encode and fused
-        reduce, param update.  Updates ``state`` in place."""
+        """Stages 1-2: channel redraw, minibatch and churn draws, local
+        training, quantize and aggregate, param update.  Updates
+        ``state`` in place."""
+        ecfg = self.engine_cfg
+        if (ecfg.redraw_channel_every > 0 and state.chan is not None
+                and t > 1 and (t - 1) % ecfg.redraw_channel_every == 0):
+            state.chan = make_channel(state.chan.cfg,
+                                      seed=ecfg.channel_seed + t)
         xs, ys = self.draw_minibatches(state)
+        active = self._draw_active(state.part_rng)
+        weights = torch.tensor(self._round_weights(active),
+                               dtype=torch.float32, device=self.device)
+        act = torch.tensor(active, dtype=torch.float32, device=self.device) \
+            if ecfg.participation < 1.0 else None
         with torch.no_grad():
-            state.params, state.qstate, bits, aux = self._fused_step(
-                state.params, state.qstate, xs, ys)
-        mean_s = float(aux["s"].double().mean()) if "s" in aux else 0.0
-        return RoundWork(t=t, bits_np=bits.double().cpu().numpy(),
-                         active=np.ones(self.K), mean_s=mean_s)
+            step = self._fused_step if ecfg.effective_fused \
+                else self._exact_step
+            state.params, state.qstate, bits, aux = step(
+                state.params, state.qstate, xs, ys, weights, act)
+        bits_np = bits.double().cpu().numpy() * active
+        s_np = aux["s"].double().cpu().numpy() if "s" in aux \
+            else np.ones(self.K)
+        mean_s = float(np.mean(s_np[active.astype(bool)]))
+        return RoundWork(t=t, bits_np=bits_np, active=active,
+                         mean_s=mean_s)
 
     def solve_uplink_host(self, chan: Optional[ChannelRealization],
                           bits_np: np.ndarray, active: np.ndarray
                           ) -> UplinkSolution:
-        """Stage 3: the host power solve (numpy + scipy)."""
+        """Stage 3: the host power solve (numpy + scipy).  Under churn
+        only active users transmit: the problem is solved on their
+        sub-channel, so absent users neither get power nor interfere;
+        their latencies stay 0."""
         per_user = np.zeros(self.K)
         if self.power is None or chan is None:
             return UplinkSolution(0.0, per_user)
-        sol = self.power.solve(chan, np.maximum(bits_np, 1.0))
-        per_user = np.asarray(sol.latencies, np.float64)
+        act_idx = np.flatnonzero(active)
+        if len(act_idx) == self.K:
+            sol = self.power.solve(chan, np.maximum(bits_np, 1.0))
+            per_user = np.asarray(sol.latencies, np.float64)
+        else:
+            sol = self.power.solve(_subchannel(chan, act_idx),
+                                   np.maximum(bits_np[act_idx], 1.0))
+            per_user[act_idx] = np.asarray(sol.latencies, np.float64)
         return UplinkSolution(sol.straggler_latency, per_user)
 
     def eval_due(self, t: int) -> bool:

@@ -5,15 +5,14 @@ hyper-parameters, CFmMIMO network shape, engine behaviour) that
 ``build_problem`` turns into concrete engine inputs.  The dataclass is
 ``repro.sim.scenarios.Scenario`` field for field, so one scenario means
 the same run in both packages; the registry holds the entries the
-port runs (the paper's Tables II and III, ``hetero-data``,
-``signplane-wire`` and ``fused-wire``), each as the JAX package
-registers it.
+port runs (the paper's Tables II and III, ``churn-0.7``,
+``monte-carlo-channel``, ``hetero-data``, ``signplane-wire`` and
+``fused-wire``), each as the JAX package registers it.
 
 ``aggregation`` picks the wire plane: ``"dense"`` (``paper-table3``'s
 default), ``"signplane"`` and ``"wire"`` (the packed plane).  Cohorts,
-clusters, budgets, replicates, async rounds, churn, channel redraws
-and registry transformers are not ported and raise
-:class:`NotImplementedError`.
+clusters, budgets, replicates, async rounds and registry transformers
+are not ported and raise :class:`NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -66,7 +65,7 @@ class Scenario:
     # CFmMIMO network (None M => no channel/power simulation)
     M: Optional[int] = 16
     N: int = 4
-    # engine behaviour
+    # engine behaviour: churn and Monte-Carlo channel redraws
     participation: float = 1.0
     redraw_channel_every: int = 0
     # wire-path plane: "dense" | "signplane" | "wire" (the packed plane)
@@ -117,6 +116,7 @@ class Scenario:
                             fused=self.fused,
                             participation=self.participation,
                             redraw_channel_every=self.redraw_channel_every,
+                            channel_seed=self.seed,
                             async_mode=self.async_mode)
 
 
@@ -198,6 +198,18 @@ register_scenario(Scenario(
     description="Table III operating point: K=40 non-IID over the "
                 "CFmMIMO uplink with a total-latency budget",
     K=40, T=60, partition="dirichlet", batch_size=32))
+
+register_scenario(Scenario(
+    name="churn-0.7",
+    description="user churn: every user independently participates in "
+                "a round w.p. 0.7; aggregation weights renormalized",
+    K=20, T=40, partition="dirichlet", participation=0.7))
+
+register_scenario(Scenario(
+    name="monte-carlo-channel",
+    description="Monte-Carlo fading geometry: fresh large-scale "
+                "realization every round (Vu et al. style averaging)",
+    K=20, T=40, redraw_channel_every=1))
 
 register_scenario(Scenario(
     name="hetero-data",

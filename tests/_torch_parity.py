@@ -1,8 +1,10 @@
 """Card-versus-CPU comparison of one engine round, stage by stage, and
-of the baseline quantizers, with the baselines' payload rules (no jax
-here: the GPU tests and ``chip_smoke.py`` import it on a machine
-without jax)."""
+of the baseline quantizers, with the baselines' payload rules; two runs
+compared bit for bit; churn rounds with their launches of K3 and K5
+held against the plain versions (no jax here: the GPU tests and
+``chip_smoke.py`` import it on a machine without jax)."""
 import math
+import time
 
 import numpy as np
 import torch
@@ -203,3 +205,119 @@ def payload_rule(qlabel: str, d: int):
                              lambda x: (x >= d + 32.0) & (x <= 4.0 * d + 32)),
     }
     return rules[qlabel]
+
+
+def run_mismatches(got, want) -> list:
+    """Where two ``FLResult`` runs differ: each round's bits, uplink,
+    cumulative latency, mean s and accuracy compared exactly, the
+    params bit for bit.  Empty when one run is the other bit for bit."""
+    bad = []
+    if len(got.logs) != len(want.logs):
+        bad.append(("rounds", len(got.logs), len(want.logs)))
+    for g, w in zip(got.logs, want.logs):
+        if not np.array_equal(g.bits_per_user, w.bits_per_user):
+            bad.append((g.round, "bits"))
+        for field in ("uplink_latency_s", "cum_latency_s", "mean_s",
+                      "test_acc"):
+            if getattr(g, field) != getattr(w, field):
+                bad.append((g.round, field, getattr(g, field),
+                            getattr(w, field)))
+    for k in sorted(want.params):
+        if not same_bits(got.params[k], want.params[k]):
+            bad.append(("params", k))
+    return bad
+
+
+class WireSpy:
+    """Records each call ``kernels.ops`` makes to the K3
+    (``mixed_res_dequant_reduce``) and K5 (``sign_dequant_reduce``)
+    wrappers, inputs and output, so the launches of a run can be held
+    afterwards against the plain versions on the very same inputs.
+    The wrappers still count their launches; the plain versions launch
+    nothing.  CPU tensors never reach the wrappers (``ops`` calls the
+    plain versions there), so a CPU run records nothing."""
+
+    PLAIN = {"mixed_res_dequant_reduce": "mixed_res_dequant_reduce_ref",
+             "sign_dequant_reduce": "sign_dequant_reduce_ref"}
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        self.real = {n: getattr(ops, n) for n in self.PLAIN}
+        for name, real in self.real.items():
+            def spy(*args, _name=name, _real=real, **kw):
+                out = _real(*args, **kw)
+                self.calls.append((_name, args, kw, out))
+                return out
+            setattr(ops, name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        for name, real in self.real.items():
+            setattr(ops, name, real)
+
+    def check(self, absent: np.ndarray) -> dict:
+        """Each recorded call against its plain version bit for bit;
+        the weights (K3) or scales (K5) of the ``absent`` users must be
+        exactly 0.  Returns the calls checked by kernel, then forgets
+        them."""
+        from repro_torch.kernels import ref
+
+        found = {}
+        idx = torch.as_tensor(np.flatnonzero(absent))
+        for name, args, kw, out in self.calls:
+            want = getattr(ref, self.PLAIN[name])(*args, **kw)
+            assert same_bits(out, want), f"{name} differs from its plain " \
+                "version on the same inputs"
+            w = args[4] if name == "mixed_res_dequant_reduce" else args[1]
+            w = w.detach().cpu()
+            assert len(w) == len(absent), (name, len(w))
+            assert bool((w[idx] == 0).all()), (name, w[idx])
+            found[name] = found.get(name, 0) + 1
+        self.calls.clear()
+        return found
+
+
+def churn_rounds(eng, rounds: int):
+    """``rounds`` rounds of a churn engine through its round-stepping
+    API (train, sub-channel power solve, finish).  Each round, bit for
+    bit: every K3 and K5 launch against its plain version on the same
+    inputs, absent users' weights and scales 0 (:class:`WireSpy`); a
+    stateful quantizer's absent users' state unchanged by the round;
+    absent users' bits and latencies 0.  Yields ``(work, log, info)``
+    a round, ``info`` holding the round's ``wall`` seconds (train to
+    finish, closed by a synchronize on the card), the ``calls`` checked
+    and the ``active`` count."""
+    from torch.utils._pytree import tree_leaves, tree_map
+
+    cuda = eng.device.type == "cuda"
+    state = eng.start_run()
+    for t in range(1, rounds + 1):
+        before = None if state.qstate is None \
+            else tree_map(torch.clone, state.qstate)
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with WireSpy() as spy:
+            work = eng.train_round(state, t)
+        uplink, per_user = eng.solve_uplink_host(state.chan, work.bits_np,
+                                                 work.active)
+        eng.finish_round(state, work, uplink, per_user_s=per_user)
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        absent = work.active == 0
+        calls = spy.check(absent)
+        assert np.all(work.bits_np[absent] == 0.0), work.bits_np
+        assert np.all(per_user[absent] == 0.0), per_user
+        if before is not None:
+            gone = torch.as_tensor(np.flatnonzero(absent),
+                                   device=eng.device)
+            for old, new in zip(tree_leaves(before),
+                                tree_leaves(state.qstate)):
+                assert same_bits(new.index_select(0, gone),
+                                 old.index_select(0, gone)), \
+                    "an absent user's quantizer state changed"
+        yield work, state.logs[-1], dict(wall=wall, calls=calls,
+                                         active=int(work.active.sum()))

@@ -200,21 +200,56 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(fused=False), dict(participation=0.7),
-    dict(redraw_channel_every=1), dict(async_mode=True),
-    dict(mesh=object()), dict(resilience=object())])
+    dict(async_mode=True), dict(mesh=object()), dict(resilience=object())])
 def test_unported_engine_modes_raise(kw):
     with pytest.raises(NotImplementedError):
         EngineConfig(**kw)
 
 
 @pytest.mark.parametrize("kw", [
+    dict(fused=False), dict(participation=0.7),
+    dict(redraw_channel_every=1)])
+def test_exact_churn_and_redraw_modes_construct_and_run(kw):
+    """The exact mode, churn and channel redraws build and run two
+    rounds of a tiny dense paper-table3 on the CPU."""
+    kw = dict(kw)
+    scn = tiny(aggregation="dense", fused=kw.pop("fused", True), **kw)
+    ecfg = scn.engine_config()
+    assert ecfg.effective_fused == scn.fused
+    from repro_torch.sim import make_engine
+    res = make_engine(scn, MixedResolutionQuantizer(0.2, 10),
+                      "bisection-lp", device="cpu").run()
+    assert res.rounds_completed == 2
+    assert all(0.0 < l.effective_participation <= 1.0 for l in res.logs)
+
+
+def test_engine_config_defaults_follow_jax():
+    """``EngineConfig()`` is JAX's: the exact mode on the dense plane;
+    the packed and signplane planes imply the fused step."""
+    cfg, jcfg = EngineConfig(), JEngineConfig()
+    assert cfg.fused is False and jcfg.fused is False
+    assert cfg.wire.plane == jcfg.wire_path().plane == "dense"
+    for plane in ("dense", "signplane", "packed"):
+        for fused in (False, True):
+            assert EngineConfig(fused=fused,
+                                wire=WirePath(plane=plane)).effective_fused \
+                == JEngineConfig(fused=fused,
+                                 wire=JWire(plane=plane)).effective_fused
+
+
+@pytest.mark.parametrize("kw", [
     dict(cohort_size=8), dict(clusters=2), dict(replicates=4),
-    dict(budget=object()), dict(async_mode=True, deadline_quantile=0.5),
-    dict(participation=0.7)])
+    dict(budget=object()), dict(async_mode=True, deadline_quantile=0.5)])
 def test_unported_scenario_modes_raise(kw):
     with pytest.raises(NotImplementedError):
         tiny(**kw).engine_config()
+
+
+def test_churn_scenario_builds_its_engine_config():
+    cfg = tiny(participation=0.7, redraw_channel_every=2,
+               seed=5).engine_config()
+    assert (cfg.participation, cfg.redraw_channel_every,
+            cfg.channel_seed, cfg.fused) == (0.7, 2, 5, True)
 
 
 @pytest.mark.parametrize("plane", ["dense", "signplane", "packed"])
@@ -277,7 +312,8 @@ def test_unported_model_and_replicates_raise():
 def test_registry_matches_jax_entries():
     from repro.sim import get_scenario as jget
     for name in ("paper-table3", "signplane-wire", "fused-wire",
-                 "paper-table2", "paper-table2-noniid", "hetero-data"):
+                 "paper-table2", "paper-table2-noniid", "hetero-data",
+                 "churn-0.7", "monte-carlo-channel"):
         a, b = dataclasses.asdict(jget(name)), dataclasses.asdict(
             get_scenario(name))
         a.pop("description"), b.pop("description")
@@ -297,7 +333,8 @@ def test_port_imports_neither_jax_nor_repro():
         names = [m.name for m in pkgutil.walk_packages(
             repro_torch.__path__, "repro_torch.")]
         names += ["benchmarks.torch_table2_accuracy",
-                  "benchmarks.torch_table3_latency"]
+                  "benchmarks.torch_table3_latency",
+                  "benchmarks.torch_fig2_convergence"]
         for n in names:
             importlib.import_module(n)
         bad = sorted(m for m in sys.modules
@@ -322,6 +359,8 @@ def test_gpu_side_sources_import_neither_jax_nor_repro():
     root = pathlib.Path(__file__).resolve().parents[1]
     files = [root / "chip_smoke.py", root / "tests" / "test_torch_gpu.py",
              root / "tests" / "_torch_parity.py",
+             root / "examples" / "quickstart_torch.py",
+             *sorted((root / "tools").glob("*.py")),
              *sorted((root / "benchmarks").glob("torch_*.py")),
              *sorted((root / "src" / "repro_torch").rglob("*.py"))]
     for f in files:

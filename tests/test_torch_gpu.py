@@ -16,7 +16,10 @@ order, within 1e-5 (f32) and 2e-2 (bf16).  K5 also at scales of 0.0,
 -0.0, subnormals, +-inf and NaN, at G from 1 to 1000 and replayed from
 a CUDA graph; K1 and K2 past one launch of users (U = 65,536).  The
 paper's baseline quantizers (classic, top-q, LAQ, AQUILA) on the card
-against the CPU, and their rounds on the card's dense plane.
+against the CPU, and their rounds on the card's dense plane.  The
+engine's exact mode bit for bit ``run_fl_sequential`` on the card; K3
+and K5 at absent users' zero weights and scales; churn rounds on the
+three planes with each K3 and K5 launch held to its plain version.
 """
 import dataclasses
 
@@ -24,7 +27,8 @@ import numpy as np
 import pytest
 import torch
 from _torch_parity import (agg_tol, baseline_card_vs_cpu, bits_equal,
-                           card_vs_cpu_rounds, payload_rule)
+                           card_vs_cpu_rounds, churn_rounds, payload_rule,
+                           run_mismatches)
 
 from repro_torch.core.quantize import MixedResolutionQuantizer, make_quantizer
 from repro_torch.kernels import LAUNCHES, WirePath, reset_launch_counts
@@ -449,6 +453,98 @@ def test_baseline_rounds_on_card(cuda, qlabel):
         assert eng.qstate.last_sent.device.type == "cuda"
     for v in res.params.values():
         assert bool(torch.isfinite(v).all())
+
+
+# ----------------------------------------------- exact mode and churn
+def tiny_table3(**kw):
+    base = dict(K=4, T=2, n_train=160, n_test=40, batch_size=8, L=2, M=4,
+                N=2, eval_every=1)
+    base.update(kw)
+    return dataclasses.replace(get_scenario("paper-table3"), **base)
+
+
+def test_exact_mode_matches_sequential_on_card(cuda):
+    """Two rounds of a tiny paper-table3 (K=4, the paper CNN at full
+    width) in the engine's exact mode against ``run_fl_sequential`` on
+    the card from one init: params, bits, latency, mean s and accuracy
+    bit for bit."""
+    from repro_torch.configs.paper_cnn import PaperCNNConfig
+    from repro_torch.core.power import BisectionLPPowerControl
+    from repro_torch.fl.cnn import init_cnn
+    from repro_torch.fl.loop import FLConfig, run_fl, run_fl_sequential
+    from repro_torch.sim.scenarios import build_problem
+
+    scn = tiny_table3()
+    train, test, shards, cfg, chan = build_problem(scn)
+    init = init_cnn(torch.Generator().manual_seed(0), PaperCNNConfig())
+    fl = FLConfig(L=scn.L, T=scn.T, batch_size=scn.batch_size,
+                  alpha=scn.lr, eval_every=1, seed=0)
+    runs = [f(train, test, shards, cfg, MixedResolutionQuantizer(0.2, 10),
+              BisectionLPPowerControl(), chan, fl, device=cuda,
+              init_params=init) for f in (run_fl_sequential, run_fl)]
+    assert run_mismatches(runs[1], runs[0]) == []
+    assert runs[1].params["conv_w"].device.type == cuda.type
+
+
+def test_exact_fold_on_card_equals_cpu(cuda):
+    """The exact mode's fold of 40 full-width reconstructions on the
+    card, bit for bit the same fold on the CPU (one IEEE rounding a
+    product and a sum on both), zero weights included."""
+    from repro_torch.sim.engine import ordered_weighted_sum
+
+    recon = deltas(3, 40, 462410, cuda)
+    w = torch.rand(40, generator=torch.Generator().manual_seed(0))
+    w[::7] = 0.0
+    w = w / w.sum()
+    got = ordered_weighted_sum(recon, w.to(cuda))
+    assert bits_equal(got, ordered_weighted_sum(recon.cpu(), w))
+
+
+@pytest.mark.parametrize("absent", [(0,), (1, 3), (0, 1, 2)])
+def test_k3_k5_zero_weights_equal_plain_versions(cuda, absent):
+    """K3 with absent users' weights 0 and K5 with their scales 0 (as a
+    churn round hands them over), bit for bit their plain versions."""
+    U, d, b = 4, 65500, 10
+    x = deltas(11, U, d, cuda)
+    wire = ops.mixed_res_encode(x, 0.2, b, path=WirePath(lowering="kernel"))
+    w = torch.tensor([0.1, 0.2, 0.3, 0.4], device=cuda)
+    w[list(absent)] = 0.0
+    got = mr.mixed_res_dequant_reduce(*wire[:4], w, b)
+    assert bits_equal(got, ref.mixed_res_dequant_reduce_ref(*wire[:4], w, b))
+    rows = ops.wire_view(x).reshape(-1, 128).contiguous()
+    words = qp.signpack(rows).reshape(U, -1, 4)
+    scales = w * wire.head[:, 1] * 0.5
+    got = qp.sign_dequant_reduce(words, scales)
+    assert bits_equal(got, ref.sign_dequant_reduce_ref(words, scales))
+
+
+@pytest.mark.parametrize("plane", ["packed", "signplane", "laq"])
+def test_churn_rounds_on_card(cuda, plane):
+    """Three rounds of a tiny churn-0.7 (K=6) on each plane on the card
+    (``churn_rounds``): each K3 or K5 launch bit for bit its plain
+    version on the same inputs with absent users' weights or scales 0;
+    LAQ's absent users' state unchanged; absent users' bits and
+    latencies 0; the launches one K1, K2, K3 or K4, K5 a round."""
+    agg = {"packed": "wire", "laq": "dense"}.get(plane, plane)
+    scn = dataclasses.replace(get_scenario("churn-0.7"), aggregation=agg,
+                              K=6, T=3, n_train=240, n_test=40,
+                              batch_size=8, L=1, M=4, N=2, eval_every=1)
+    q = ("laq", {"b": 4, "xi": 0.5}) if plane == "laq" \
+        else ("mixed-resolution", {"lambda_": 0.2, "b": 10})
+    eng = make_engine(scn, q, "bisection-lp", device=cuda)
+    reset_launch_counts()
+    absent = 0
+    for work, log, info in churn_rounds(eng, scn.T):
+        absent += eng.K - info["active"]
+        assert 1 <= info["active"] <= eng.K
+        assert log.effective_participation == info["active"] / eng.K
+    assert absent > 0
+    torch.cuda.synchronize()
+    want = {"packed": ("mixed_res_reduce", "mixed_res_emit",
+                       "mixed_res_dequant_reduce"),
+            "signplane": ("signpack", "sign_dequant_reduce"),
+            "laq": ()}[plane]
+    assert LAUNCHES == {k: scn.T if k in want else 0 for k in LAUNCHES}
 
 
 # ---------------------------------------------------------------- K6

@@ -353,7 +353,8 @@ def both_runs(request):
     teng = VectorizedFLEngine(
         train, test, shards, PaperCNNConfig(**NARROW),
         MixedResolutionQuantizer(LAM, B), BisectionLPPowerControl(), chan,
-        FLConfig(**fl), engine=EngineConfig(wire=WirePath(plane=plane)),
+        FLConfig(**fl), engine=EngineConfig(fused=True,
+                                            wire=WirePath(plane=plane)),
         device="cpu", init_params=init)
     before = dict(LAUNCHES)
     tres = teng.run()
@@ -458,7 +459,8 @@ def test_signplane_rejects_non_mixed_quantizer():
                            device="cpu")
     # the dense plane takes any quantizer and averages its recons
     eng = VectorizedFLEngine(*_tiny_problem(), _NotMixed(), None, None, fl,
-                             engine=EngineConfig(wire=WirePath(plane="dense")),
+                             engine=EngineConfig(
+                                 fused=True, wire=WirePath(plane="dense")),
                              device="cpu")
     flat = torch.randn(4, eng.d)
     agg, bits, _, _ = eng.aggregate(flat)
@@ -472,7 +474,8 @@ def test_wide_codes_only_limit_the_packed_plane(plane, ok):
     fl = FLConfig(L=1, T=1, batch_size=8, seed=0)
     make = lambda: VectorizedFLEngine(
         *_tiny_problem(), MixedResolutionQuantizer(0.2, 20), None, None,
-        fl, engine=EngineConfig(wire=WirePath(plane=plane)), device="cpu")
+        fl, engine=EngineConfig(fused=True, wire=WirePath(plane=plane)),
+        device="cpu")
     if not ok:
         with pytest.raises(ValueError, match="16 bits"):
             make()
