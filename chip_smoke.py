@@ -53,11 +53,23 @@
    round's wall time and stage split, bit for bit ``run_fl_sequential``
    from the same init; ``churn-0.7`` (K=20) 3 rounds each on the packed
    and signplane planes and on the dense plane with LAQ, the counters
-   zeroed before each plane and read after, every K3 and K5 launch held
+   zeroed before each plane and read after, every K1-K5 launch held
    bit for bit to its plain version on the same inputs (absent users'
    weights and scales 0) and LAQ's absent users' state unchanged; and 3
    rounds of ``monte-carlo-channel``, a channel a round equal to the
-   host's ``make_channel`` and an uplink that changes;
+   host's ``make_channel`` and an uplink that changes; then the batched
+   physical layer: (a) the batched power solvers on 64 realizations of
+   ``paper-table3``'s channel against the numpy controllers, float64
+   (forward differences) and float32 (autodiff), and their times at
+   batch 1 and 64 beside the numpy loop; (b) ``run_grid_batched`` on
+   ``paper-table3``'s packed plane x bisection-LP, Dinkelbach and
+   max-sum-rate, 3 rounds, one K1, K2, K3 a round for the three cells,
+   each round's training and solve seconds, bits equal to the host
+   ``run_grid``'s and uplinks within its contract; (c) the replicate
+   axis: ``monte-carlo-replicated`` (R=8, vmap) 2 rounds with their
+   seconds and peak memory, R = 1 bit for bit the unreplicated run, and
+   R = 2 on the packed and signplane planes with every K1-K5 launch
+   held to its plain version and replicate 0 the unreplicated run;
 8. the paper's baselines on the dense plane at full width: on one
    round's deltas (``[40, 462410]``) each of classic, top-q, LAQ (three
    successive calls) and AQUILA on the card against the CPU
@@ -78,12 +90,14 @@
    with K6's plain version in its place; then times decode at a short
    context and at the nearly full cache in turns, two of each;
 10. prints one ``{"kernels": [...]}`` JSON line (K1–K6; K1–K5's
-   launches over the main path's rounds and the churn rounds), and ends with
+   launches over the main path's rounds, the churn rounds and the
+   batched phy phase's lockstep and R = 2 runs), and ends with
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, before printing any result, without a CUDA device or
 without the repository's sources beside it.  Any failed check raises.
 """
+import contextlib
 import csv
 import dataclasses
 import json
@@ -129,6 +143,14 @@ CHURN_PLANES = {"packed": ("wire", ("mixed-resolution",
 BASELINE_POWERS = {"dinkelbach": ("dinkelbach", {"outer": 4, "inner": 15}),
                    "max-sum-rate": ("max-sum-rate", {"iters": 20,
                                                      "restarts": 0})}
+# the batched phy phase: realizations of paper-table3's channel for the
+# solvers, the lockstep grid's power cells and rounds, the replicate rounds
+PHY_REALIZATIONS = 64
+PHY_POWERS = {"bisection-lp": "bisection-lp",
+              "dinkelbach": ("dinkelbach", {"outer": 4, "inner": 15}),
+              "max-sum-rate": ("max-sum-rate", {"iters": 20})}
+PHY_ROUNDS = 3
+REPL_ROUNDS = 2
 # the serve path: granite-3-8b decode, and K6's shape there (one layer)
 SERVE = dict(arch="granite-3-8b", B=8, prompt=16, gen=48, max_len=4096)
 K6_SERVE = dict(B=8, Hkv=8, G=4, S=4096, D=128, Dv=128)
@@ -879,7 +901,7 @@ def churn(dev):
     ``CHURN_ROUNDS`` rounds on each of the packed and signplane planes
     (mixed-resolution(0.2, 10)) and the dense plane with LAQ, each with
     the launch counters zeroed just before and read just after
-    (``_torch_parity.churn_rounds``): every K3 and K5 launch bit for bit
+    (``_torch_parity.churn_rounds``): every K1-K5 launch bit for bit
     its plain version on the same inputs, absent users' weights and
     scales exactly 0, LAQ's absent users' state unchanged, absent users'
     bits and latencies 0.  Prints each round's active count, sub-channel
@@ -913,7 +935,7 @@ def churn(dev):
                   f"{log.uplink_latency_s:.6f} s, bits of the active "
                   f"{on.min():.0f}..{on.max():.0f}, acc "
                   f"{log.test_acc:.4f}, wall {info['wall']:.6f} s, "
-                  f"K3/K5 launches held to their plain versions "
+                  f"K1-K5 launches held to their plain versions "
                   f"{info['calls']}")
             if not math.isfinite(log.cum_latency_s) or log.cum_latency_s <= 0:
                 raise AssertionError(f"churn {label}: bad log {log}")
@@ -930,9 +952,10 @@ def churn(dev):
         if spied and checked.get(spied) != CHURN_ROUNDS:
             raise AssertionError(f"churn {label}: checked {checked}")
         print(f"churn {label}: {absent} absent uploads over "
-              f"{CHURN_ROUNDS} rounds; launches {got}; K3 and K5 bit for "
-              f"bit their plain versions at absent users' zero weights "
-              f"and scales; absent users' quantizer state unchanged")
+              f"{CHURN_ROUNDS} rounds; launches {got}; K1-K5 bit for "
+              f"bit their plain versions, K3 and K5 at absent users' zero "
+              f"weights and scales; absent users' quantizer state "
+              f"unchanged")
         counts[label] = got
         del eng
     return counts
@@ -979,6 +1002,434 @@ def redraws(dev):
             raise AssertionError(f"redraw round {t}: channel differs")
     if len(set(uplinks)) != len(uplinks):
         raise AssertionError(f"the uplink did not change: {uplinks}")
+
+
+# ------------------------------------------------ the batched phy phase
+@contextlib.contextmanager
+def patched(pairs):
+    """Each ``(owner, attr, hook)`` has ``owner.attr`` replaced by
+    ``hook(original)`` for the duration; the originals come back
+    after."""
+    saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in pairs]
+    try:
+        for owner, attr, hook in pairs:
+            setattr(owner, attr, hook(getattr(owner, attr)))
+        yield
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+
+
+def stopwatch(times, label):
+    """A hook for :func:`patched`: each call's seconds, closed by a
+    synchronize on both sides, appended to ``times[label]``."""
+    import torch
+
+    def hook(fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            times.setdefault(label, []).append(time.perf_counter() - t0)
+            return out
+        return run
+    return hook
+
+
+def rel_err(got, want, floor):
+    """max |got - want| / max(|want|, floor), in float64 on the host."""
+    import numpy as np
+    g = got.double().cpu().numpy() if hasattr(got, "cpu") \
+        else np.asarray(got, np.float64)
+    w = np.asarray(want, np.float64)
+    return float(np.max(np.abs(g - w) / np.maximum(np.abs(w), floor)))
+
+
+class Checks:
+    """Named checks of a phase: each prints its value beside its limit;
+    :meth:`done` raises if any failed."""
+
+    def __init__(self, phase_name):
+        self.phase_name, self.failed = phase_name, []
+
+    def at_most(self, label, value, limit):
+        ok = value <= limit
+        print(f"  {label}: {value:.3e} (limit {limit:.0e}) "
+              f"{'ok' if ok else 'FAILED'}")
+        if not ok:
+            self.failed.append(label)
+
+    def true(self, label, ok, detail=""):
+        print(f"  {label}: {'ok' if ok else 'FAILED'} {detail}".rstrip())
+        if not ok:
+            self.failed.append(label)
+
+    def done(self):
+        if self.failed:
+            raise AssertionError(f"{self.phase_name}: failed {self.failed}")
+
+
+def phy_solvers(dev):
+    """(a) The batched solvers on the card at ``PHY_REALIZATIONS``
+    realizations of ``paper-table3``'s channel (K=40, M=16, N=4; seeds
+    0..63) with packed-plane payloads ``d (b s + 1 - s) + 32``, against
+    the port's numpy controllers one realization at a time: float64 with
+    forward differences within DESIGN.md section 7's x64 contract,
+    float32 within its f32 contract (rates within 1e-2 or the float32
+    rounding of ``1 + SINR``), every p in [0, 1].  Then each
+    float32 solve's time at batch 1 and 64 (warm, median of 5, closed by
+    a synchronize) beside the numpy loop's."""
+    import numpy as np
+    import torch
+    from repro_torch import phy
+    from repro_torch.core.channel import CFmMIMOConfig, make_channel
+    from repro_torch.sim import get_scenario
+    from repro_torch.sim.sweep import _make_power
+
+    scn = get_scenario("paper-table3")
+    cfg = CFmMIMOConfig(M=scn.M, N=scn.N, K=scn.K)
+    n, d, b = PHY_REALIZATIONS, MAIN["d"], MAIN["b"]
+    chans = [make_channel(cfg, seed=s) for s in range(n)]
+    s_frac = np.random.default_rng(0).uniform(0.005, 0.05, (n, cfg.K))
+    bits = d * (b * s_frac + 1.0 - s_frac) + 32.0
+    ctrls = {name: _make_power(spec) for name, spec in PHY_POWERS.items()}
+    ctrls["max-sum-rate, 5 iterations"] = _make_power(
+        ("max-sum-rate", {"iters": 5}))
+    ctrls["max-sum-rate, defaults"] = _make_power("max-sum-rate")
+    refs, host_s = {}, {}
+    for name, ctrl in ctrls.items():
+        t0 = time.perf_counter()
+        refs[name] = [ctrl.solve(c, bits[i]) for i, c in enumerate(chans)]
+        host_s[name] = time.perf_counter() - t0
+    print(f"numpy controllers over the {n} realizations: "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in host_s.items()))
+    rates = {k: np.stack([r.rates for r in v]) for k, v in refs.items()}
+    info = lambda name, key: [r.info[key] for r in refs[name]]
+    cbs = {dt: phy.bundle_from_realizations(chans, dtype=dt, device=dev)
+           for dt in (torch.float64, torch.float32)}
+    solve = lambda name, dt, **kw: phy.batched_solver(ctrls[name])(
+        cbs[dt], bits, **kw)
+    ck = Checks("batched solvers")
+
+    def box(label, sol):
+        p = sol.p.double().cpu().numpy()
+        ck.true(f"{label}: every p in [0, 1]",
+                bool(np.all((p >= 0.0) & (p <= 1.0))))
+
+    def f32_rates(label, got, want, p):
+        """float32 rates against the numpy ones: within the f32
+        contract's 1e-2, or where larger within the rounding of
+        ``1 + SINR`` in float32, 2^-23 / ln(1 + SINR) relative: at
+        K=40 some users sit at SINR ~3e-6 and lose ~1e-2 there (the JAX
+        package's f32 rates alike, on the CPU)."""
+        sinr = np.stack([c.sinr(p[i]) for i, c in enumerate(chans)])
+        err = np.abs(got.double().cpu().numpy() - want) / np.abs(want)
+        limit = np.maximum(1e-2, 2.0 ** -23 / np.log1p(sinr))
+        worst = np.unravel_index(np.argmax(err / limit), err.shape)
+        ck.true(f"{label}: within max(1e-2, 2^-23 / ln(1 + SINR))",
+                bool(np.all(err <= limit)),
+                f"(max err {err.max():.3e}; worst against its limit "
+                f"{err[worst]:.3e} of {limit[worst]:.3e} at SINR "
+                f"{sinr[worst]:.3e})")
+
+    print("float64, forward differences, against the numpy controllers:")
+    f64 = torch.float64
+    sol = solve("bisection-lp", f64)
+    box("bisection", sol)
+    ck.at_most("bisection eta", rel_err(
+        sol.info["eta"], info("bisection-lp", "eta"), 1e-12), 1e-5)
+    ck.at_most("bisection rates", rel_err(sol.rates, rates["bisection-lp"],
+                                          0.0), 1e-5)
+    sol = solve("dinkelbach", f64)
+    box("dinkelbach", sol)
+    ck.at_most("dinkelbach rates", rel_err(sol.rates, rates["dinkelbach"],
+                                           0.0), 1e-5)
+    sol = solve("max-sum-rate, 5 iterations", f64)
+    box("max-sum-rate, 5 iterations", sol)
+    ck.at_most("max-sum-rate rates, 5 iterations (floor 1 bit/s)",
+               rel_err(sol.rates, rates["max-sum-rate, 5 iterations"], 1.0),
+               1e-5)
+    sol = solve("max-sum-rate, defaults", f64)
+    box("max-sum-rate, defaults", sol)
+    short = 1.0 - np.min(sol.info["sum_rate"].double().cpu().numpy()
+                         / np.array(info("max-sum-rate, defaults",
+                                         "sum_rate")))
+    ck.at_most("max-sum-rate at its defaults: sum rate short of the "
+               "reference's by", short, 5e-2)
+
+    print("float32, autodiff (the driver's precision), against the numpy "
+          "controllers:")
+    f32 = torch.float32
+    p = np.random.default_rng(1).uniform(0.05, 1.0, (n, cfg.K)).astype(
+        np.float32).astype(np.float64)
+    f32_rates("rate evaluation", cbs[f32].rates(
+        torch.as_tensor(p, dtype=f32, device=dev)),
+        np.stack([c.rates(p[i]) for i, c in enumerate(chans)]), p)
+    sol = solve("bisection-lp", f32)
+    box("bisection", sol)
+    ck.at_most("bisection eta", rel_err(
+        sol.info["eta"], info("bisection-lp", "eta"), 1e-12), 1e-3)
+    ck.at_most("bisection rates", rel_err(sol.rates, rates["bisection-lp"],
+                                          0.0), 1e-3)
+    sol = solve("dinkelbach", f32, grad_mode="fd")
+    f32_rates("dinkelbach rates, forward differences (the all-ones fixed "
+              "point)", sol.rates, rates["dinkelbach"],
+              np.stack([r.p for r in refs["dinkelbach"]]))
+    sol = solve("dinkelbach", f32)
+    box("dinkelbach", sol)
+    ee = sol.info["energy_efficiency"].double().cpu().numpy()
+    ck.at_most("dinkelbach, autodiff: energy efficiency short of the "
+               "reference's by", 1.0 - np.min(
+                   ee / np.array(info("dinkelbach", "energy_efficiency"))),
+               5e-2)
+    trace = sol.info["ee_trace"].double().cpu().numpy()
+    ck.true("dinkelbach ee_trace monotone",
+            bool(np.all(np.diff(trace, axis=-1) >= 0.0)))
+    sol = solve("max-sum-rate, defaults", f32)
+    box("max-sum-rate, defaults", sol)
+    ck.at_most("max-sum-rate, autodiff: sum rate short of the reference's "
+               "by", 1.0 - np.min(sol.info["sum_rate"].double().cpu().numpy()
+                                  / np.array(info("max-sum-rate, defaults",
+                                                  "sum_rate"))), 5e-2)
+    ck.done()
+
+    for name in PHY_POWERS:
+        row = {}
+        for batch in (1, n):
+            cb = phy.bundle_from_realizations(chans[:batch], device=dev)
+            fn = lambda: phy.batched_solver(ctrls[name])(cb, bits[:batch])
+            fn()
+            secs = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            row[f"card, batch {batch}"] = statistics.median(secs)
+        secs = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            ctrls[name].solve(chans[0], bits[0])
+            secs.append(time.perf_counter() - t0)
+        row["numpy, batch 1"] = statistics.median(secs)
+        row[f"numpy loop, batch {n}"] = host_s[name]
+        print(f"{name}: " + ", ".join(f"{k} {v:.6f} s"
+                                       for k, v in row.items())
+              + f"; at batch {n} the numpy loop takes "
+              f"{row[f'numpy loop, batch {n}'] / row[f'card, batch {n}']:.1f}"
+              "x the card's time")
+
+
+def phy_lockstep(dev):
+    """(b) ``run_grid_batched`` at full width: ``paper-table3`` on the
+    packed plane, mixed-resolution(0.2, 10) x the three controllers of
+    ``PHY_POWERS``, ``PHY_ROUNDS`` rounds, the launch counters zeroed
+    just before and read just after: one K1, K2, K3 a round, since one
+    training track serves the three power cells.  Prints each round's
+    training and batched-solve seconds.  Against the host ``run_grid``
+    on the same rounds (all three inside ``deterministic_cudnn``, so the
+    same training gives the same bits): bits exact in every cell;
+    bisection-LP's float32 uplinks within 2e-2 (DESIGN.md section 7's
+    f32 contract); the same driver in float64 (forward differences)
+    within 1e-5 for all three controllers.  In float32 the ascent
+    controllers differentiate by autodiff, as in the JAX driver, and
+    reach other optima than the host's forward differences: their ratio
+    to the host uplink is printed.  Returns the launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch.fl.loop import deterministic_cudnn
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.sim import (VectorizedFLEngine, get_scenario, run_grid,
+                                 run_grid_batched)
+    from repro_torch.sim import phy_driver
+
+    scn = dataclasses.replace(get_scenario("paper-table3"), aggregation="wire",
+                              T=PHY_ROUNDS, eval_every=1)
+    q = {"mixed-resolution": ("mixed-resolution",
+                              {"lambda_": MAIN["lam"], "b": MAIN["b"]})}
+    times = {}
+    with deterministic_cudnn(), patched([
+            (VectorizedFLEngine, "train_round", stopwatch(times, "train")),
+            (phy_driver, "_solve_round_batched", stopwatch(times, "solve"))]):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        f32 = run_grid_batched([scn], q, PHY_POWERS, quick=False, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(LAUNCHES)
+    for t in range(PHY_ROUNDS):
+        print(f"lockstep round {t + 1}: training (one track) "
+              f"{times['train'][t]:.6f} s, batched solve (3 power specs) "
+              f"{times['solve'][t]:.6f} s")
+    print(f"lockstep run: {wall:.3f} s in all ({PHY_ROUNDS} rounds, 3 cells, "
+          f"setup included); launches {counts}")
+    ck = Checks("lockstep driver")
+    kernels = ("mixed_res_reduce", "mixed_res_emit", "mixed_res_dequant_reduce")
+    ck.true("K1, K2, K3 once a round for the three cells",
+            counts == {k: PHY_ROUNDS if k in kernels else 0 for k in counts},
+            str(counts))
+    with deterministic_cudnn():
+        f64 = run_grid_batched([scn], q, PHY_POWERS, quick=False, device=dev,
+                               dtype=torch.float64)
+        host = run_grid([scn], q, PHY_POWERS, quick=False, device=dev)
+    for rf, rd, rh in zip(f32, f64, host, strict=True):
+        label = rh.cell.power_label
+        up = {k: np.array([l.uplink_latency_s for l in r.result.logs])
+              for k, r in (("f32", rf), ("f64", rd), ("host", rh))}
+        ck.true(f"{label}: bits equal the host's in every round (float32 "
+                "and float64 runs)", all(
+                    np.array_equal(a.bits_per_user, c.bits_per_user)
+                    and np.array_equal(b_.bits_per_user, c.bits_per_user)
+                    for a, b_, c in zip(rf.result.logs, rd.result.logs,
+                                        rh.result.logs, strict=True)))
+        print(f"  {label}: host uplinks {up['host']}, float32 / host "
+              f"{up['f32'] / up['host']}, max_p {rf.summary['max_p']:.6f}")
+        ck.true(f"{label}: max_p in (0, 1]",
+                0.0 < rf.summary["max_p"] <= 1.0)
+        ck.at_most(f"{label}: float64 uplinks against the host's",
+                   rel_err(up["f64"], up["host"], 0.0), 1e-5)
+        if label == "bisection-lp":
+            ck.at_most(f"{label}: float32 uplinks against the host's",
+                       rel_err(up["f32"], up["host"], 0.0), 2e-2)
+    ck.done()
+    return {k: counts[k] for k in kernels}
+
+
+def phy_replicates(dev):
+    """(c) The replicate axis at full width.  ``monte-carlo-replicated``
+    (K=20, R=8, the dense plane; ``"auto"`` is ``"vmap"`` on the card)
+    for ``REPL_ROUNDS`` rounds through ``run_grid_batched``: each
+    round's train, solve, eval and finish seconds and the peak device
+    memory; the 8 replicates' channels distinct.  R = 1 against the
+    unreplicated driver: bit for bit.  R = 2 on the packed and the
+    signplane planes (one replicate at a time), ``REPL_ROUNDS`` rounds
+    each with the counters zeroed: K1-K3 or K4-K5 launch R x rounds
+    times, each launch bit for bit its plain version on the same inputs
+    (``_torch_parity.WireSpy``), and replicate 0 the unreplicated run
+    of that plane bit for bit.  The runs that are compared train inside
+    ``deterministic_cudnn``.  Returns the launch counts."""
+    import numpy as np
+    import torch
+    from _torch_parity import WireSpy, same_bits
+    from repro_torch.fl.loop import deterministic_cudnn
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.sim import (VectorizedFLEngine, get_scenario,
+                                 make_engine, run_grid_batched)
+    from repro_torch.sim import phy_driver
+
+    scn = dataclasses.replace(get_scenario("monte-carlo-replicated"),
+                              T=REPL_ROUNDS, eval_every=1)
+    R = scn.replicates
+    q = ("mixed-resolution", {"lambda_": MAIN["lam"], "b": MAIN["b"]})
+    qs, ps = {"mixed-resolution": q}, {"bisection-lp": "bisection-lp"}
+    ck = Checks("replicates")
+    times, grids, modes = {}, [], []
+
+    def record_grid(fn):
+        def run(grid, *args, **kw):
+            grids.append([list(row) for row in grid])
+            return fn(grid, *args, **kw)
+        return run
+
+    def record_mode(fn):
+        def run(self, n):
+            step = fn(self, n)
+            modes.append(step.__name__)
+            return step
+        return run
+
+    with patched([
+            (VectorizedFLEngine, "train_round_replicated",
+             stopwatch(times, "train")),
+            (phy_driver, "_solve_round_replicated", stopwatch(times, "solve")),
+            (VectorizedFLEngine, "eval_accuracy_replicated",
+             stopwatch(times, "eval")),
+            (phy_driver, "_finish_replicated_cell",
+             stopwatch(times, "finish")),
+            (phy_driver, "bundle_from_realization_grid", record_grid),
+            (VectorizedFLEngine, "_replicated_step", record_mode)]):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res = run_grid_batched([scn], qs, ps, quick=False, device=dev)[0]
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    for t in range(REPL_ROUNDS):
+        split = {k: times[k][t] for k in ("train", "solve", "eval", "finish")}
+        print(f"monte-carlo-replicated round {t + 1} (R={R}, K={scn.K}): "
+              f"{sum(split.values()):.6f} s = "
+              + " + ".join(f"{k} {v:.6f}" for k, v in split.items()))
+    s = res.summary
+    print(f"  peak device memory {peak:.1f} MiB; summary: total latency "
+          f"{s['total_latency_s']:.6f} +- {s['total_latency_s_ci95']:.6f} s,"
+          f" best acc {s['best_acc']:.4f} +- {s['best_acc_ci95']:.4f}, "
+          f"max_p {s['max_p']:.6f}")
+    ck.true("the replicated step ran under vmap", modes == ["step_vmap"] *
+            REPL_ROUNDS, str(modes))
+    a_bars = [c.A_bar for c in grids[0][0]]
+    ck.true(f"the {R} replicates' channels are distinct", len(a_bars) == R
+            and all(not np.array_equal(a_bars[i], a_bars[j])
+                    for i in range(R) for j in range(i + 1, R)))
+    ck.true("summary finite, ci95 > 0 on the latency", all(
+        math.isfinite(s[k]) for k in ("total_latency_s",
+                                      "total_latency_s_ci95", "best_acc"))
+        and s["total_latency_s_ci95"] > 0 and s["replicates"] == R)
+
+    one = dataclasses.replace(scn, replicates=1)
+    with deterministic_cudnn():
+        plain = run_grid_batched([one], qs, ps, quick=False, device=dev)[0]
+        rep1 = run_grid_batched([one], qs, ps, quick=False, device=dev,
+                                replicates=1)[0]
+    a, b_ = plain.result, rep1.result[0]
+    ck.true("R = 1 is the unreplicated run bit for bit (bits, accuracy, "
+            "mean s, params)", all(
+                np.array_equal(x.bits_per_user, y.bits_per_user)
+                and x.test_acc == y.test_acc and x.mean_s == y.mean_s
+                for x, y in zip(a.logs, b_.logs, strict=True))
+            and all(same_bits(a.params[k], b_.params[k]) for k in a.params))
+    ck.at_most("R = 1 uplinks against the unreplicated run's", rel_err(
+        [l.uplink_latency_s for l in b_.logs],
+        [l.uplink_latency_s for l in a.logs], 0.0), 1e-9)
+
+    counts = {}
+    for plane, agg, kernels in (
+            ("packed", "wire", ("mixed_res_reduce", "mixed_res_emit",
+                                "mixed_res_dequant_reduce")),
+            ("signplane", "signplane", ("signpack", "sign_dequant_reduce"))):
+        eng = make_engine(dataclasses.replace(scn, aggregation=agg), q,
+                          "bisection-lp", device=dev)
+        with deterministic_cudnn():
+            st = eng.start_replicated_run(2)
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            with WireSpy() as spy:
+                works = [eng.train_round_replicated(st, t)
+                         for t in range(1, REPL_ROUNDS + 1)]
+                torch.cuda.synchronize()
+            got = dict(LAUNCHES)
+            checked = spy.check(np.zeros(eng.K))
+            un = eng.start_run()
+            uworks = [eng.train_round(un, t)
+                      for t in range(1, REPL_ROUNDS + 1)]
+        n = 2 * REPL_ROUNDS
+        ck.true(f"{plane}, R = 2: launches R x rounds", got == {
+            k: n if k in kernels else 0 for k in got}, str(got))
+        ck.true(f"{plane}, R = 2: every launch bit for bit its plain version",
+                checked == {k: n for k in kernels}, str(checked))
+        ck.true(f"{plane}, R = 2: replicate 0 is the unreplicated run bit "
+                "for bit", all(np.array_equal(w.bits_np[0], u.bits_np)
+                               and w.mean_s[0] == u.mean_s
+                               for w, u in zip(works, uworks))
+                and all(same_bits(st.params[k][0], un.params[k])
+                        for k in un.params))
+        ck.true(f"{plane}, R = 2: replicate 1 trains on other data",
+                not np.array_equal(works[0].bits_np[1], works[0].bits_np[0]))
+        counts.update({k: got[k] for k in kernels})
+        del eng, st, un
+    ck.done()
+    return counts
 
 
 def drive_baseline(eng, rounds, qlabel, label):
@@ -1862,6 +2313,18 @@ def main():
 
     phase("monte-carlo-channel (K=20): 3 rounds, a new channel a round")
     redraws(dev)
+
+    phase(f"batched phy: the solvers on {PHY_REALIZATIONS} realizations of "
+          "paper-table3's channel")
+    phy_solvers(dev)
+    phase(f"batched phy: run_grid_batched on paper-table3, packed, x "
+          f"{len(PHY_POWERS)} power controllers, {PHY_ROUNDS} rounds")
+    for k, v in phy_lockstep(dev).items():
+        launches[k] += v
+    phase(f"batched phy: replicates (monte-carlo-replicated R=8; R=1; R=2 "
+          f"on the packed and signplane planes), {REPL_ROUNDS} rounds each")
+    for k, v in phy_replicates(dev).items():
+        launches[k] += v
 
     phase("baselines: classic, top-q, LAQ, AQUILA; Dinkelbach, max-sum-rate")
     t0 = time.perf_counter()

@@ -1,19 +1,25 @@
 """repro_torch.sim — the vectorized FL-over-CFmMIMO engine's fused step
-on the packed, signplane and dense wire planes, the scenario registry
-entries it runs, round-log metrics and the cell and grid runners."""
+on the packed, signplane and dense wire planes and its Monte-Carlo
+replicate axis, the scenario registry entries it runs, round-log
+metrics, the cell and grid runners and the batched-phy grid driver."""
 from repro_torch.kernels import WirePath
 
-from .engine import (EngineConfig, RoundWork, RunState, UplinkSolution,
-                     VectorizedFLEngine, straggler_gap)
-from .metrics import METRIC_FIELDS, summarize_logs, write_metrics_csv
+from .engine import (EngineConfig, ReplicatedRoundWork, ReplicatedRunState,
+                     RoundWork, RunState, UplinkSolution, VectorizedFLEngine,
+                     straggler_gap)
+from .metrics import (METRIC_FIELDS, REPLICATE_FIELDS, summarize_logs,
+                      summarize_replicates, write_metrics_csv)
+from .phy_driver import run_grid_batched
 from .scenarios import (SCENARIOS, Scenario, build_problem, get_scenario,
                         list_scenarios, register_scenario)
 from .sweep import SweepCell, SweepResult, make_engine, run_cell, run_grid
 
 __all__ = [
-    "EngineConfig", "METRIC_FIELDS", "RoundWork", "RunState", "SCENARIOS",
-    "Scenario", "SweepCell", "SweepResult", "UplinkSolution",
-    "VectorizedFLEngine", "WirePath", "build_problem", "get_scenario", "list_scenarios",
-    "make_engine", "register_scenario", "run_cell", "run_grid",
-    "straggler_gap", "summarize_logs", "write_metrics_csv",
+    "EngineConfig", "METRIC_FIELDS", "REPLICATE_FIELDS",
+    "ReplicatedRoundWork", "ReplicatedRunState", "RoundWork", "RunState",
+    "SCENARIOS", "Scenario", "SweepCell", "SweepResult", "UplinkSolution",
+    "VectorizedFLEngine", "WirePath", "build_problem", "get_scenario",
+    "list_scenarios", "make_engine", "register_scenario", "run_cell",
+    "run_grid", "run_grid_batched", "straggler_gap", "summarize_logs",
+    "summarize_replicates", "write_metrics_csv",
 ]

@@ -39,11 +39,19 @@ the active users' sub-channel; the wire kernels still encode every
 user and fold the absent ones at weight 0) and Monte-Carlo channel
 redraws (a fresh realization every ``redraw_channel_every`` rounds).
 
+The Monte-Carlo replicate axis (:meth:`start_replicated_run`,
+:meth:`train_round_replicated`) runs R independent trajectories of one
+fused problem: per replicate its own minibatch and churn streams and
+its own channel realizations, params and quantizer state stacked on a
+leading R axis, one step call a round (``torch.func.vmap`` over R, or a
+loop over the replicates; :attr:`EngineConfig.replicate_batching`).
+The batched sweep driver (``sim/phy_driver.py``) owns the latency
+accounting per (cell, replicate).
+
 Modes of the JAX engine that are not ported raise
 :class:`NotImplementedError`: cohorts, clusters, budgets and the
-checksum (all on :class:`WirePath`), async rounds, the mesh,
-resilience and the replicate axis.  The port has no observability
-taps.
+checksum (all on :class:`WirePath`), async rounds, the mesh and
+resilience.  The port has no observability taps.
 """
 from __future__ import annotations
 
@@ -83,6 +91,12 @@ class EngineConfig:
     participation: float = 1.0       # P(user active in a round) — churn
     redraw_channel_every: int = 0    # 0 = fixed realization (paper)
     channel_seed: int = 0            # base seed for Monte-Carlo redraws
+    # how the replicate axis R runs the fused step: "vmap" batches all R
+    # trajectories in one torch.func.vmap, "map" loops the replicates;
+    # "auto" picks "vmap" on the card and "map" on the CPU.  The packed
+    # and signplane planes always "map": the kernels take one
+    # replicate's [K, d] at a time and have no vmap rule.
+    replicate_batching: str = "auto"  # "auto" | "map" | "vmap"
     async_mode: bool = False
     mesh: Optional[object] = None
     resilience: Optional[object] = None
@@ -119,6 +133,15 @@ class RoundWork:
 
 
 @dataclasses.dataclass
+class ReplicatedRoundWork:
+    """RoundWork with a leading Monte-Carlo replicate axis R."""
+    t: int
+    bits_np: np.ndarray            # [R, K] payload bits; 0 for absent users
+    active: np.ndarray             # [R, K] 0/1 participation masks
+    mean_s: np.ndarray             # [R] mean high-res fraction per replicate
+
+
+@dataclasses.dataclass
 class RunState:
     """Mutable per-run state for the round-stepping API."""
     params: dict
@@ -133,6 +156,37 @@ class RunState:
     rounds_done: int = 0
 
 
+@dataclasses.dataclass
+class ReplicatedRunState:
+    """Per-run state of R Monte-Carlo replicates: params and quantizer
+    state stacked on a leading R axis (each replicate in storage of its
+    own), per-replicate RNG streams and channel realizations.  Latency
+    accounting is the batched driver's, per (cell, replicate)."""
+    params: dict                               # [R, ...] per leaf
+    qstate: Any                                # [R, K, ...] (or None)
+    chans: List[Optional[ChannelRealization]]  # length R
+    rngs: List[np.random.Generator]            # minibatch streams
+    part_rngs: List[np.random.Generator]       # churn streams
+    test_x: torch.Tensor
+    test_y: torch.Tensor
+    rounds_done: int = 0
+
+    @property
+    def R(self) -> int:
+        return len(self.rngs)
+
+
+# RNG streams of replicate r > 0 (replicate 0 keeps the unreplicated
+# streams, so R = 1 is the unreplicated run):
+# minibatches   default_rng((seed, _REPL_TAG, r))
+# churn         default_rng((seed, 0x5EED, _REPL_TAG, r))
+# channels      make_channel(seed = channel_seed + r * stride + t)
+# The stride keeps the replicates' channel seeds apart from the
+# unreplicated redraw seeds (channel_seed + t, t <= T << stride).
+_REPL_TAG = 0x4D43                  # "MC"
+_REPL_CHANNEL_SEED_STRIDE = 1 << 20
+
+
 def _subchannel(chan: ChannelRealization, idx: np.ndarray
                 ) -> ChannelRealization:
     """Restrict a realization to the active-user subset: inactive users
@@ -144,6 +198,12 @@ def _subchannel(chan: ChannelRealization, idx: np.ndarray
         gamma=chan.gamma[:, idx], A_bar=chan.A_bar[idx],
         B_bar=chan.B_bar[idx], B_tilde=chan.B_tilde[np.ix_(idx, idx)],
         I_M=chan.I_M[idx])
+
+
+def _each(fn, tree):
+    """``tree_map`` that leaves None (no quantizer state, no churn mask)
+    as None."""
+    return None if tree is None else tree_map(fn, tree)
 
 
 def ordered_weighted_sum(recon: torch.Tensor, weights: torch.Tensor
@@ -187,6 +247,10 @@ class VectorizedFLEngine:
         self.device = resolve_device(device)
         self.model_spec = as_model_spec(model)
         self.engine_cfg = engine or EngineConfig()
+        if self.engine_cfg.replicate_batching not in ("auto", "map",
+                                                      "vmap"):
+            raise ValueError(f"unknown replicate_batching "
+                             f"{self.engine_cfg.replicate_batching!r}")
         self.wire_path_spec = self.engine_cfg.wire
         plane = self.wire_path_spec.plane
         if (plane in ("signplane", "packed")
@@ -447,7 +511,146 @@ class VectorizedFLEngine:
                 break
         return self.result(state)
 
-    # ------------------------------------------- modes not ported yet
-    def start_replicated_run(self, R: int):
-        raise NotImplementedError(
-            "the Monte-Carlo replicate axis is not ported to repro_torch yet")
+    # ------------------------------------------- replicated round API
+    def _replicated_step(self, R: int):
+        """The round's step over a leading replicate axis R, one call
+        for all R trajectories.  R = 1 runs :meth:`_fused_step` itself
+        on the squeezed tensors, so it is the unreplicated run bit for
+        bit; R > 1 runs it under ``torch.func.vmap`` over R or loops it
+        over the replicates (:attr:`EngineConfig.replicate_batching`)."""
+        fused = self._fused_step
+
+        def one(r, params, qstate, xs, ys, weights, active):
+            """Replicate r's slice of the stacked arguments."""
+            take = lambda x: x[r]
+            return ({k: v[r] for k, v in params.items()},
+                    _each(take, qstate), xs[r], ys[r], weights[r],
+                    _each(take, active))
+
+        if R == 1:
+            def step1(*args):
+                out = fused(*one(0, *args))
+                return tuple(_each(lambda x: x[None], o) for o in out)
+            return step1
+        mode = self.engine_cfg.replicate_batching
+        if mode == "auto":
+            mode = "vmap" if self.device.type == "cuda" else "map"
+        if self.wire_path_spec.plane in ("signplane", "packed"):
+            mode = "map"        # the kernels take one replicate at a time
+        if mode == "map":
+            def step_map(*args):
+                outs = [fused(*one(r, *args)) for r in range(R)]
+                return tuple(
+                    None if outs[0][i] is None
+                    else tree_map(lambda *xs: torch.stack(xs),
+                                  *[o[i] for o in outs])
+                    for i in range(4))
+            return step_map
+
+        def step_vmap(params, qstate, xs, ys, weights, active):
+            q_dim = None if qstate is None else 0
+            in_dims = (0, q_dim, 0, 0, 0, None if active is None else 0)
+            try:
+                return vmap(fused, in_dims=in_dims,
+                            out_dims=(0, q_dim, 0, 0))(
+                    params, qstate, xs, ys, weights, active)
+            except torch.cuda.OutOfMemoryError:
+                raise
+            except RuntimeError as err:
+                raise RuntimeError(
+                    f"quantizer {self.quantizer.name!r} does not run under "
+                    "the replicate vmap; configure "
+                    "EngineConfig(replicate_batching=\"map\")") from err
+        return step_vmap
+
+    def _repl_chan_seed(self, r: int, t: int) -> int:
+        return (self.engine_cfg.channel_seed
+                + r * _REPL_CHANNEL_SEED_STRIDE + t)
+
+    def start_replicated_run(self, R: int) -> ReplicatedRunState:
+        """R fresh replicates: the engine's initial params and quantizer
+        state copied R times (real copies, not views), replicate 0 on
+        the unreplicated streams and channel."""
+        if not self.engine_cfg.effective_fused:
+            raise ValueError(
+                "replicated mode vmaps the fused per-round step; "
+                "configure EngineConfig(fused=True)")
+        if R < 1:
+            raise ValueError(f"need at least one replicate, got {R}")
+        seed = self.fl.seed
+        stack = lambda tr: _each(
+            lambda x: x[None].repeat((R,) + (1,) * x.dim()), tr)
+        chans: List[Optional[ChannelRealization]] = [self.chan]
+        for r in range(1, R):
+            chans.append(None if self.chan is None else make_channel(
+                self.chan.cfg, seed=self._repl_chan_seed(r, 0)))
+        return ReplicatedRunState(
+            params=stack(self.params), qstate=stack(self.qstate),
+            chans=chans,
+            rngs=[np.random.default_rng(seed) if r == 0 else
+                  np.random.default_rng((seed, _REPL_TAG, r))
+                  for r in range(R)],
+            part_rngs=[np.random.default_rng((seed, 0x5EED)) if r == 0
+                       else np.random.default_rng((seed, 0x5EED,
+                                                   _REPL_TAG, r))
+                       for r in range(R)],
+            test_x=torch.as_tensor(self.test.x, device=self.device),
+            test_y=torch.as_tensor(self.test.y, device=self.device))
+
+    def train_round_replicated(self, state: ReplicatedRunState, t: int
+                               ) -> ReplicatedRoundWork:
+        """All R replicates' channel redraws, minibatch and churn draws
+        and one call of the replicated step for round t.  Updates
+        ``state`` in place (new tensors; nothing is written into the
+        old ones, so a snapshot of a replicate's params stays valid)."""
+        ecfg, R = self.engine_cfg, state.R
+        if ecfg.redraw_channel_every > 0 and t > 1 \
+                and (t - 1) % ecfg.redraw_channel_every == 0:
+            for r in range(R):
+                if state.chans[r] is not None:
+                    state.chans[r] = make_channel(
+                        state.chans[r].cfg, seed=self._repl_chan_seed(r, t))
+        # per replicate, the same nested draw order as train_round
+        sel = np.stack([
+            np.stack([np.stack([rng.choice(shard, self.take, replace=False)
+                                for _ in range(self.fl.L)])
+                      for shard in self.shards])
+            for rng in state.rngs])                  # [R, K, L, b]
+        idx = torch.as_tensor(sel, device=self.device)
+        xs, ys = self._train_x[idx], self._train_y[idx]
+        active = np.stack([self._draw_active(prng)
+                           for prng in state.part_rngs])      # [R, K]
+        weights = torch.tensor(
+            np.stack([self._round_weights(a) for a in active]),
+            dtype=torch.float32, device=self.device)
+        act = torch.tensor(active, dtype=torch.float32, device=self.device) \
+            if ecfg.participation < 1.0 else None
+        with torch.no_grad():
+            state.params, state.qstate, bits, aux = self._replicated_step(R)(
+                state.params, state.qstate, xs, ys, weights, act)
+        state.rounds_done = t
+        bits_np = bits.double().cpu().numpy() * active
+        s_np = aux["s"].double().cpu().numpy() if "s" in aux \
+            else np.ones((R, self.K))
+        mean_s = np.array([float(np.mean(s_np[r][active[r].astype(bool)]))
+                           for r in range(R)])
+        return ReplicatedRoundWork(t=t, bits_np=bits_np, active=active,
+                                   mean_s=mean_s)
+
+    def replicate_params(self, state: ReplicatedRunState, r: int) -> dict:
+        """Replicate r's current params, a copy of its own."""
+        return {k: v[r].clone() for k, v in state.params.items()}
+
+    def eval_accuracy_replicated(self, state: ReplicatedRunState,
+                                 alive: Optional[np.ndarray] = None
+                                 ) -> np.ndarray:
+        """Test accuracy per replicate [R], one replicate at a time (for
+        R = 1 the unreplicated path's own call); NaN for replicates the
+        ``alive`` mask leaves out."""
+        accs = np.full(state.R, np.nan)
+        rs = range(state.R) if alive is None else np.flatnonzero(alive)
+        for r in rs:
+            accs[r] = self.model_spec.accuracy(
+                self.replicate_params(state, int(r)), state.test_x,
+                state.test_y)
+        return accs

@@ -5,16 +5,21 @@ a list of per-round :class:`RoundLog` records to the scalar metrics of
 the paper's tables (best/final accuracy, rounds completed, mean payload
 bits, mean high-resolution fraction, cumulative latency, straggler
 percentiles) plus the straggler-gap and async columns, which stay at
-their sync defaults on the port's lockstep path.  ``write_metrics_csv``
-writes sweep rows in the JAX package's column order.  The Monte-Carlo
-replicate columns are not ported.
+their sync defaults on the port's lockstep path.
+
+``summarize_replicates`` lifts that row over the Monte-Carlo replicate
+axis: each replicate's logs are summarized on their own, every metric
+becomes the across-replicate mean under its own name, and
+``<metric>_ci95`` carries the normal-approximation 95% half-width
+``1.96 * std(ddof=1) / sqrt(R)`` (0 at R = 1).  ``write_metrics_csv``
+writes sweep rows in the JAX package's column order.
 """
 from __future__ import annotations
 
 import csv
 import os
 import tempfile
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Sequence
 
 import numpy as np
 
@@ -49,15 +54,43 @@ def summarize_logs(logs: List) -> Dict[str, float]:
     }
 
 
-# max_p (the batched phy solve's largest power coefficient) and
-# resumed_from_round (checkpoint resume) are not filled on the port's
-# host-solve path and stay blank, as in the JAX package's host-solve CSV.
+def summarize_replicates(replicate_logs: Sequence[List]
+                         ) -> Dict[str, float]:
+    """Reduce R replicates' log lists to mean + ci95 columns: every
+    ``summarize_logs`` metric under its own name as the across-replicate
+    mean, ``<metric>_ci95`` (1.96 * standard error; 0.0 at R = 1) and a
+    ``replicates`` count.  NaN metrics propagate as NaN means."""
+    if not replicate_logs:
+        raise ValueError("need at least one replicate")
+    rows = [summarize_logs(logs) for logs in replicate_logs]
+    R = len(rows)
+    out: Dict[str, float] = {}
+    for key in rows[0]:
+        vals = np.array([row[key] for row in rows], dtype=np.float64)
+        out[key] = float(np.mean(vals))
+        out[key + "_ci95"] = float(
+            1.96 * np.std(vals, ddof=1) / np.sqrt(R)) if R > 1 else 0.0
+    out["replicates"] = float(R)
+    return out
+
+
+# max_p (the batched phy solve's largest power coefficient) is filled
+# by the batched driver; it and resumed_from_round (checkpoint resume,
+# not ported) stay blank on the host-solve path, as in the JAX
+# package's CSV.
 METRIC_FIELDS = ["rounds", "best_acc", "final_acc", "mean_bits_per_user",
                  "mean_s", "total_latency_s", "mean_uplink_s",
                  "p95_uplink_s", "mean_straggler_gap_s",
                  "mean_staleness", "effective_participation",
                  "dropped_uploads", "quarantined_users",
                  "power_fallbacks", "resumed_from_round", "max_p"]
+
+# the replicated driver's extra columns, written only when some row
+# carries them (unreplicated CSVs keep their schema); max_p and
+# resumed_from_round are filled by the driver, so they carry no ci95
+REPLICATE_FIELDS = ["replicates"] + [
+    f + "_ci95" for f in METRIC_FIELDS
+    if f not in ("max_p", "resumed_from_round")]
 
 
 def write_metrics_csv(rows: Iterable[Dict], path: str) -> None:
@@ -69,6 +102,8 @@ def write_metrics_csv(rows: Iterable[Dict], path: str) -> None:
         return
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     fields = ["scenario", "quantizer", "power"] + METRIC_FIELDS
+    if any(f in row for f in REPLICATE_FIELDS for row in rows):
+        fields += REPLICATE_FIELDS
     fd, tmp = tempfile.mkstemp(
         dir=os.path.dirname(path) or ".", suffix=".csv.tmp")
     try:

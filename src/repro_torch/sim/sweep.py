@@ -13,9 +13,9 @@
 
 Each cell runs the engine and summarizes its round logs
 (``repro_torch.sim.metrics``).  Quantizer and power specs are registry
-names (with optional kwargs) or ready instances.  The batched phy
-solve path (``phy_batched=True``) and the replicate axis are not
-ported.
+names (with optional kwargs) or ready instances.  ``phy_batched=True``
+runs the grid on the batched phy path (``sim/phy_driver.py``), where
+``replicates=R`` adds the Monte-Carlo replicate axis.
 """
 from __future__ import annotations
 
@@ -142,12 +142,23 @@ def run_grid(scenarios: List[Union[str, Scenario]],
     built once and each quantizer's engine is reused across the power
     axis: power control runs on the host, so only ``engine.power``
     changes, and every run starts from the engine's initial params and
-    quantizer state."""
-    if phy_batched or replicates is not None:
-        raise NotImplementedError(
-            "the batched phy solve path and the replicate axis "
-            "(phy_batched=True, replicates) are not ported to repro_torch "
-            "yet")
+    quantizer state.
+
+    ``phy_batched=True`` routes power control through the batched
+    :mod:`repro_torch.phy` solvers instead: all cells of a scenario
+    advance in lockstep and each round's power problems are solved in
+    one batched call per power spec (``run_grid_batched``), where
+    ``replicates=R`` runs R Monte-Carlo replicates per cell."""
+    if phy_batched:
+        from .phy_driver import run_grid_batched
+        return run_grid_batched(scenarios, quantizers, powers=powers,
+                                quick=quick, out_csv=out_csv,
+                                latency_budget_s=latency_budget_s,
+                                verbose=verbose, replicates=replicates,
+                                device=device)
+    if replicates is not None:
+        raise ValueError("replicates requires phy_batched=True (the "
+                         "replicate axis lives in the batched driver)")
     powers = powers if powers is not None else {"none": None}
     results: List[SweepResult] = []
     for scenario in scenarios:

@@ -1,6 +1,6 @@
 """Card-versus-CPU comparison of one engine round, stage by stage, and
 of the baseline quantizers, with the baselines' payload rules; two runs
-compared bit for bit; churn rounds with their launches of K3 and K5
+compared bit for bit; churn rounds with their launches of K1–K5
 held against the plain versions (no jax here: the GPU tests and
 ``chip_smoke.py`` import it on a machine without jax)."""
 import math
@@ -229,16 +229,23 @@ def run_mismatches(got, want) -> list:
 
 
 class WireSpy:
-    """Records each call ``kernels.ops`` makes to the K3
-    (``mixed_res_dequant_reduce``) and K5 (``sign_dequant_reduce``)
-    wrappers, inputs and output, so the launches of a run can be held
-    afterwards against the plain versions on the very same inputs.
-    The wrappers still count their launches; the plain versions launch
-    nothing.  CPU tensors never reach the wrappers (``ops`` calls the
-    plain versions there), so a CPU run records nothing."""
+    """Records each call ``kernels.ops`` makes to the K1
+    (``mixed_res_reduce``), K2 (``mixed_res_emit``), K3
+    (``mixed_res_dequant_reduce``), K4 (``signpack``) and K5
+    (``sign_dequant_reduce``) wrappers, inputs and output, so the
+    launches of a run can be held afterwards against the plain versions
+    on the very same inputs.  The wrappers still count their launches;
+    the plain versions launch nothing.  CPU tensors never reach the
+    wrappers (``ops`` calls the plain versions there), so a CPU run
+    records nothing."""
 
-    PLAIN = {"mixed_res_dequant_reduce": "mixed_res_dequant_reduce_ref",
+    PLAIN = {"mixed_res_reduce": "mixed_res_reduce_ref",
+             "mixed_res_emit": "mixed_res_emit_ref",
+             "mixed_res_dequant_reduce": "mixed_res_dequant_reduce_ref",
+             "signpack": "signpack_ref",
              "sign_dequant_reduce": "sign_dequant_reduce_ref"}
+    # the argument holding the per-user weights (K3) or scales (K5)
+    WEIGHTS = {"mixed_res_dequant_reduce": 4, "sign_dequant_reduce": 1}
 
     def __init__(self):
         self.calls = []
@@ -258,22 +265,25 @@ class WireSpy:
             setattr(ops, name, real)
 
     def check(self, absent: np.ndarray) -> dict:
-        """Each recorded call against its plain version bit for bit;
-        the weights (K3) or scales (K5) of the ``absent`` users must be
-        exactly 0.  Returns the calls checked by kernel, then forgets
-        them."""
+        """Each recorded call against its plain version bit for bit
+        (every output buffer); the weights (K3) or scales (K5) of the
+        ``absent`` users must be exactly 0.  Returns the calls checked
+        by kernel, then forgets them."""
         from repro_torch.kernels import ref
 
         found = {}
         idx = torch.as_tensor(np.flatnonzero(absent))
         for name, args, kw, out in self.calls:
             want = getattr(ref, self.PLAIN[name])(*args, **kw)
-            assert same_bits(out, want), f"{name} differs from its plain " \
-                "version on the same inputs"
-            w = args[4] if name == "mixed_res_dequant_reduce" else args[1]
-            w = w.detach().cpu()
-            assert len(w) == len(absent), (name, len(w))
-            assert bool((w[idx] == 0).all()), (name, w[idx])
+            outs = out if isinstance(out, tuple) else (out,)
+            wants = want if isinstance(want, tuple) else (want,)
+            assert len(outs) == len(wants) and all(
+                same_bits(o, w) for o, w in zip(outs, wants)), \
+                f"{name} differs from its plain version on the same inputs"
+            if name in self.WEIGHTS:
+                w = args[self.WEIGHTS[name]].detach().cpu()
+                assert len(w) == len(absent), (name, len(w))
+                assert bool((w[idx] == 0).all()), (name, w[idx])
             found[name] = found.get(name, 0) + 1
         self.calls.clear()
         return found
@@ -282,7 +292,7 @@ class WireSpy:
 def churn_rounds(eng, rounds: int):
     """``rounds`` rounds of a churn engine through its round-stepping
     API (train, sub-channel power solve, finish).  Each round, bit for
-    bit: every K3 and K5 launch against its plain version on the same
+    bit: every K1–K5 launch against its plain version on the same
     inputs, absent users' weights and scales 0 (:class:`WireSpy`); a
     stateful quantizer's absent users' state unchanged by the round;
     absent users' bits and latencies 0.  Yields ``(work, log, info)``

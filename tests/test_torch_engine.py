@@ -238,7 +238,7 @@ def test_engine_config_defaults_follow_jax():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(cohort_size=8), dict(clusters=2), dict(replicates=4),
+    dict(cohort_size=8), dict(clusters=2), dict(async_mode=True),
     dict(budget=object()), dict(async_mode=True, deadline_quantile=0.5)])
 def test_unported_scenario_modes_raise(kw):
     with pytest.raises(NotImplementedError):
@@ -299,13 +299,16 @@ def test_planes_construct_and_dispatch(plane, monkeypatch):
 
 
 def test_unported_model_and_replicates_raise():
+    """An unported model raises NotImplementedError; the replicate axis
+    is ported, and refuses the exact mode (``EngineConfig()``) as JAX
+    does."""
     from repro_torch.sim.scenarios import build_problem
     with pytest.raises(NotImplementedError):
         build_problem(tiny(model="qwen3-14b"))
     eng = VectorizedFLEngine(
         *build_problem(tiny(M=None))[:4], MixedResolutionQuantizer(), None,
         None, FLConfig(L=1, T=1, batch_size=8), device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="fused"):
         eng.start_replicated_run(2)
 
 
@@ -334,7 +337,9 @@ def test_port_imports_neither_jax_nor_repro():
             repro_torch.__path__, "repro_torch.")]
         names += ["benchmarks.torch_table2_accuracy",
                   "benchmarks.torch_table3_latency",
-                  "benchmarks.torch_fig2_convergence"]
+                  "benchmarks.torch_fig2_convergence",
+                  "benchmarks.torch_phy_solvers",
+                  "benchmarks.torch_mc_replicates"]
         for n in names:
             importlib.import_module(n)
         bad = sorted(m for m in sys.modules

@@ -19,16 +19,20 @@ paper's baseline quantizers (classic, top-q, LAQ, AQUILA) on the card
 against the CPU, and their rounds on the card's dense plane.  The
 engine's exact mode bit for bit ``run_fl_sequential`` on the card; K3
 and K5 at absent users' zero weights and scales; churn rounds on the
-three planes with each K3 and K5 launch held to its plain version.
+three planes with each K1-K5 launch held to its plain version.  The
+batched power solvers on the card against the CPU in float64; the
+replicated packed and signplane steps with each K1-K5 launch held to its
+plain version and replicate 0 the unreplicated run; the replicate vmap
+against the loop over replicates.
 """
 import dataclasses
 
 import numpy as np
 import pytest
 import torch
-from _torch_parity import (agg_tol, baseline_card_vs_cpu, bits_equal,
-                           card_vs_cpu_rounds, churn_rounds, payload_rule,
-                           run_mismatches)
+from _torch_parity import (WireSpy, agg_tol, baseline_card_vs_cpu,
+                           bits_equal, card_vs_cpu_rounds, churn_rounds,
+                           payload_rule, run_mismatches, same_bits)
 
 from repro_torch.core.quantize import MixedResolutionQuantizer, make_quantizer
 from repro_torch.kernels import LAUNCHES, WirePath, reset_launch_counts
@@ -545,6 +549,99 @@ def test_churn_rounds_on_card(cuda, plane):
             "signplane": ("signpack", "sign_dequant_reduce"),
             "laq": ()}[plane]
     assert LAUNCHES == {k: scn.T if k in want else 0 for k in LAUNCHES}
+
+
+# ------------------------------------------------------- batched phy
+@pytest.mark.parametrize("name", ["bisection-lp", "dinkelbach",
+                                  "max-sum-rate"])
+def test_phy_solvers_card_equal_cpu_float64(cuda, name):
+    """The float64 (forward-difference) batched solve on the card against
+    the same solve on the CPU, 16 realizations at K=10: rates within the
+    x64 contract's 1e-5 (max-sum over 5 iterations, before the ascent
+    bifurcates); every p in [0, 1]."""
+    from repro_torch import phy
+    from repro_torch.core.channel import CFmMIMOConfig, make_channel
+    from repro_torch.core.power import make_power_controller
+
+    chans = [make_channel(CFmMIMOConfig(K=10, M=9), seed=s)
+             for s in range(16)]
+    bits = np.random.default_rng(1).uniform(1e5, 2e6, (16, 10))
+    mask = (np.random.default_rng(2).random((16, 10)) < 0.7).astype(float)
+    mask[:, 0] = 1.0
+    kw = {"iters": 5} if name == "max-sum-rate" else {}
+    solve = phy.batched_solver(make_power_controller(name, **kw))
+    got, want = (solve(phy.bundle_from_realizations(
+        chans, dtype=torch.float64, device=dev), bits, mask=mask)
+        for dev in (cuda, "cpu"))
+    assert got.p.is_cuda
+    p = got.p.cpu().numpy()
+    assert np.all((p >= 0.0) & (p <= 1.0)) and np.all(p[mask == 0] == 0.0)
+    r, w = got.rates.cpu().numpy(), want.rates.numpy()
+    assert np.max(np.abs(r - w) / np.maximum(np.abs(w), 1.0)) < 1e-5
+
+
+@pytest.mark.parametrize("plane", ["packed", "signplane"])
+def test_replicated_wire_steps_equal_plain_versions(cuda, plane):
+    """R = 2 replicates of a tiny churn-0.7 (K=6) on the packed or the
+    signplane plane, one replicate at a time: K1-K3 or K4-K5 launch
+    R x rounds times, each launch bit for bit its plain version on the
+    same inputs; replicate 0 is the unreplicated run bit for bit."""
+    from repro_torch.fl.loop import deterministic_cudnn
+
+    scn = dataclasses.replace(get_scenario("churn-0.7"),
+                              aggregation={"packed": "wire"}.get(plane, plane),
+                              K=6, T=2, n_train=240, n_test=40,
+                              batch_size=8, L=1, M=4, N=2, eval_every=1)
+    eng = make_engine(scn, ("mixed-resolution", {"lambda_": 0.2, "b": 10}),
+                      "bisection-lp", device=cuda)
+    kernels = {"packed": ("mixed_res_reduce", "mixed_res_emit",
+                          "mixed_res_dequant_reduce"),
+               "signplane": ("signpack", "sign_dequant_reduce")}[plane]
+    with deterministic_cudnn():
+        st = eng.start_replicated_run(2)
+        reset_launch_counts()
+        with WireSpy() as spy:
+            works = [eng.train_round_replicated(st, t) for t in (1, 2)]
+        torch.cuda.synchronize()
+        assert LAUNCHES == {k: 4 if k in kernels else 0 for k in LAUNCHES}
+        # the churn masks differ by replicate; check() holds the weights
+        # and scales of users absent in every recorded call only
+        absent = np.all([w.active == 0 for w in works], axis=(0, 1))
+        assert spy.check(absent) == {k: 4 for k in kernels}
+        un = eng.start_run()
+        uworks = [eng.train_round(un, t) for t in (1, 2)]
+    for w, u in zip(works, uworks):
+        np.testing.assert_array_equal(w.bits_np[0], u.bits_np)
+        np.testing.assert_array_equal(w.active[0], u.active)
+    for k in un.params:
+        assert same_bits(st.params[k][0], un.params[k]), k
+
+
+def test_replicate_vmap_matches_map_on_card(cuda):
+    """The dense plane's replicate vmap (``"auto"`` on the card) against
+    the loop over replicates: bits exact after a round, params within
+    1e-3 of the largest move (two conv lowerings, their roundoff
+    magnified by AdaGrad, as ``test_engine_round_on_card_matches_cpu``
+    bounds the card against the CPU)."""
+    scn = dataclasses.replace(get_scenario("monte-carlo-replicated"), K=6,
+                              T=1, n_train=240, n_test=40, batch_size=8, L=1,
+                              M=4, N=2)
+    out = {}
+    for mode in ("auto", "map"):
+        eng = make_engine(scn, ("mixed-resolution", {"lambda_": 0.2, "b": 10}),
+                          "bisection-lp", device=cuda)
+        eng.engine_cfg = dataclasses.replace(eng.engine_cfg,
+                                             replicate_batching=mode)
+        assert eng._replicated_step(3).__name__ == \
+            {"auto": "step_vmap", "map": "step_map"}[mode]
+        st = eng.start_replicated_run(3)
+        w = eng.train_round_replicated(st, 1)
+        out[mode] = (w.bits_np, st.params, eng.params)
+    np.testing.assert_array_equal(out["auto"][0], out["map"][0])
+    for k, init in out["map"][2].items():
+        move = float((out["map"][1][k] - init).abs().max())
+        diff = float((out["map"][1][k] - out["auto"][1][k]).abs().max())
+        assert diff <= 1e-3 * move, (k, diff, move)
 
 
 # ---------------------------------------------------------------- K6

@@ -307,8 +307,14 @@ def test_new_scenarios_build_as_jax(name):
 
 
 def test_run_grid_refuses_the_unported_paths():
-    for kw in (dict(phy_batched=True), dict(replicates=2),
-               dict(phy_batched=True, replicates=2)):
-        with pytest.raises(NotImplementedError, match="phy_batched"):
-            run_grid(["paper-table3"], {"m": "mixed-resolution"},
+    """The batched phy path is ported; ``replicates`` without it is a
+    ValueError as in JAX, and what the batched driver does not port yet
+    (async scenarios) raises NotImplementedError through ``run_grid``."""
+    with pytest.raises(ValueError, match="phy_batched"):
+        run_grid(["paper-table3"], {"m": "mixed-resolution"},
+                 device="cpu", replicates=2)
+    scn = dataclasses.replace(tiny(get_scenario), async_mode=True)
+    for kw in (dict(phy_batched=True), dict(phy_batched=True, replicates=2)):
+        with pytest.raises(NotImplementedError, match="async"):
+            run_grid([scn], {"m": "mixed-resolution"}, quick=False,
                      device="cpu", **kw)
