@@ -70,6 +70,24 @@
    seconds and peak memory, R = 1 bit for bit the unreplicated run, and
    R = 2 on the packed and signplane planes with every K1-K5 launch
    held to its plain version and replicate 0 the unreplicated run;
+   then the user-axis scale and round modes: ``cohort-wire`` (K=20,
+   cohorts of 8: K1, K2, K3 three times a round) and C=20 (bit for bit
+   ``fused-wire``) beside ``fused-wire``, with the params gap and a
+   cohort round's stage split; the fold of the main shape's 40 users in
+   chunks of 1, 8, 13 and 40 through K3's ``acc``, equal to the
+   one-shot K3; ``cohort-hierarchy`` (bits bit for bit
+   ``cohort-wire``'s); one round at K = 2,000 and 20,000 users (one
+   sample each, C=256) and the vectorized step at K = 2,000, with
+   their wall time and peak memory beside K*d*4 and C*d*4;
+   ``layer-budget-wire`` (K1-K3 bit for bit at its six segment shapes
+   with and without ``acc``, 6 launches each a round, every launch held
+   to its plain version, the bits' segment-sum identity, the device
+   time of the six segments' encode and reduce beside one global
+   segment's, a uniform budget bit for bit the global path); and async
+   rounds (``async-q50`` on the dense and packed planes and
+   ``async-churn`` through ``run_cell`` and ``run_grid_batched``, K3
+   over 2K = 40 slots bit for bit, ``async-sync-reduction`` bit for bit
+   the lockstep run in both drivers);
 8. the paper's baselines on the dense plane at full width: on one
    round's deltas (``[40, 462410]``) each of classic, top-q, LAQ (three
    successive calls) and AQUILA on the card against the CPU
@@ -90,8 +108,9 @@
    with K6's plain version in its place; then times decode at a short
    context and at the nearly full cache in turns, two of each;
 10. prints one ``{"kernels": [...]}`` JSON line (K1–K6; K1–K5's
-   launches over the main path's rounds, the churn rounds and the
-   batched phy phase's lockstep and R = 2 runs), and ends with
+   launches over the main path's rounds, the churn rounds, the batched
+   phy phase's lockstep and R = 2 runs, and the cohort, cluster, scale,
+   budget and async rounds), and ends with
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, before printing any result, without a CUDA device or
@@ -100,6 +119,7 @@ without the repository's sources beside it.  Any failed check raises.
 import contextlib
 import csv
 import dataclasses
+import gc
 import json
 import math
 import pathlib
@@ -151,6 +171,15 @@ PHY_POWERS = {"bisection-lp": "bisection-lp",
               "max-sum-rate": ("max-sum-rate", {"iters": 20})}
 PHY_ROUNDS = 3
 REPL_ROUNDS = 2
+WIRE_KERNELS = ("mixed_res_reduce", "mixed_res_emit",
+                "mixed_res_dequant_reduce")
+COHORT_ROUNDS = 3
+COHORT_FOLD_CHUNKS = (1, 8, 13, 40)
+# (K, C): cohorts of C, None the vectorized step
+SCALE_POINTS = ((2000, 256), (20000, 256), (2000, None))
+BUDGET_ROUNDS = 3
+ASYNC_ROUNDS = 5
+SYNC_ROUNDS = 3
 # the serve path: granite-3-8b decode, and K6's shape there (one layer)
 SERVE = dict(arch="granite-3-8b", B=8, prompt=16, gen=48, max_len=4096)
 K6_SERVE = dict(B=8, Hkv=8, G=4, S=4096, D=128, Dv=128)
@@ -2066,6 +2095,449 @@ def serve_full_width(dev):
     return counts["flash_decode"]
 
 
+def wire_q():
+    from repro_torch.core.quantize import MixedResolutionQuantizer
+    return MixedResolutionQuantizer(MAIN["lam"], MAIN["b"])
+
+
+def per_round(n):
+    """The launch counts of a packed round that runs K1, K2 and K3 ``n``
+    times each."""
+    from repro_torch.kernels import LAUNCHES
+    return {k: n if k in WIRE_KERNELS else 0 for k in LAUNCHES}
+
+
+def add_counts(total, counts):
+    for k in WIRE_KERNELS:
+        total[k] = total.get(k, 0) + counts[k]
+
+
+def cohorts(dev):
+    """``cohort-wire`` as registered (K=20, cohorts of C=8, no channel)
+    ``COHORT_ROUNDS`` rounds beside ``fused-wire`` from the same init,
+    and the same scenario with C=20; all inside ``deterministic_cudnn``,
+    so the same training gives the same bits.  A cohort round launches
+    K1, K2 and K3 once a cohort (3 times: 8, 8 and 4 users padded to 8);
+    C=20 is one cohort of all users, the vectorized step bit for bit.
+    Prints each round's wall time and the params gap to ``fused-wire``
+    (C < K trains under a vmap of 8 users, which rounds the deltas
+    another way than one of 20).  Returns (launch counts, the cohort
+    run's state, the init params)."""
+    from _torch_parity import params_gap, run_mismatches
+    from repro_torch.fl.loop import deterministic_cudnn
+    from repro_torch.sim import get_scenario, make_engine
+
+    ck, counts = Checks("cohorts"), {}
+    fused = dataclasses.replace(get_scenario("fused-wire"), T=COHORT_ROUNDS,
+                                eval_every=1)
+    cohort = dataclasses.replace(get_scenario("cohort-wire"),
+                                 T=COHORT_ROUNDS, eval_every=1)
+    whole = dataclasses.replace(cohort, cohort_size=cohort.K)
+    eng = make_engine(fused, wire_q(), None, device=dev)
+    init = eng.params
+    runs = {}
+    with deterministic_cudnn():
+        for label, scn, n in (("fused-wire", fused, 1),
+                              ("cohort-wire C=8", cohort, 3),
+                              ("cohort-wire C=20", whole, 1)):
+            if label != "fused-wire":
+                eng = make_engine(scn, wire_q(), None, device=dev,
+                                  init_params=init)
+            c, state = drive(eng, COHORT_ROUNDS, per_round(n), label)
+            add_counts(counts, c)
+            runs[label] = eng.result(state)
+    cohort_stages(dev, cohort, init)
+    gap = params_gap(runs["cohort-wire C=8"].params, runs["fused-wire"].params)
+    move = max(float(v.double().abs().max()) for v in init.values())
+    print(f"  params gap cohort-wire C=8 to fused-wire after {COHORT_ROUNDS} "
+          f"rounds: {gap:.3e} (params up to {move:.3e})")
+    bad = run_mismatches(runs["cohort-wire C=20"], runs["fused-wire"])
+    ck.true("C=20 (one cohort of all 20 users) bit for bit fused-wire",
+            not bad, str(bad[:4]))
+    ck.done()
+    return counts, runs["cohort-wire C=8"], init
+
+
+def cohort_stages(dev, scn, init, rounds=2):
+    """Where a cohort round's time goes: ``rounds`` more rounds of
+    ``scn`` with the cohort step's stages closed by a synchronize each
+    (host clock, seconds a round): the cohorts' training (vmap), their
+    encodes (pad, K1, epilogue, K2) and their folds (K3 with acc)."""
+    from repro_torch.sim import VectorizedFLEngine, make_engine
+    from repro_torch.sim import engine as engine_mod
+
+    eng = make_engine(scn, wire_q(), None, device=dev, init_params=init)
+    state = eng.start_run()
+    eng.train_round(state, 1)
+    times = {}
+    with patched([
+            (VectorizedFLEngine, "_batched_local",
+             stopwatch(times, "training (vmap over a cohort)")),
+            (engine_mod, "mixed_res_encode",
+             stopwatch(times, "encode (pad, K1, epilogue, K2)")),
+            (engine_mod, "mixed_res_wire_reduce",
+             stopwatch(times, "fold (K3 with acc)"))]):
+        for t in range(2, rounds + 2):
+            eng.train_round(state, t)
+    for label, secs in times.items():
+        print(f"  {label}: {sum(secs) / rounds:.6f} s a round "
+              f"({len(secs) // rounds} calls a round)")
+
+
+def cohort_fold(dev):
+    """The fold on the card, on given deltas: the main shape's U=40 users
+    (d=462,410, user 1 all zero, user 3 at weight 0 as if churned)
+    encoded and folded in chunks of C in {1, 8, 13, 40} through K3's
+    ``acc`` (``_torch_parity.fold_chunks``); each must equal the
+    one-shot K3 over all 40 users as values and give the same headers."""
+    import torch
+    from _torch_parity import bits_equal, fold_chunks
+    from repro_torch.kernels import ops
+
+    U, d, b, lam = MAIN["U"], MAIN["d"], MAIN["b"], MAIN["lam"]
+    x = deltas(U, d, seed=11, device=dev)
+    w = torch.rand(U, generator=torch.Generator(device=dev).manual_seed(5),
+                   device=dev) / U
+    w[3] = 0.0
+    wire = ops.mixed_res_encode(x, lam, b)
+    one = ops.mixed_res_wire_reduce(wire, w, b, d)
+    ck = Checks("cohort fold")
+    for C in COHORT_FOLD_CHUNKS:
+        acc, head = fold_chunks(x, w, lam, b, C)
+        torch.cuda.synchronize()
+        ck.true(f"C={C}: {-(-U // C)} chunks folded through acc equal the "
+                "one-shot K3 (values), headers bit for bit",
+                torch.equal(acc, one) and bits_equal(head, wire.head),
+                f"max |diff| {float((acc - one).abs().max()):.3e}")
+    ck.done()
+
+
+def cohort_hierarchy(dev, init, flat_run):
+    """``cohort-hierarchy`` (4 AP clusters of 5 users, cohorts of 8)
+    ``COHORT_ROUNDS`` rounds from the cohort phase's init: a cluster is
+    one cohort (5 users padded to 8), so K1, K2 and K3 launch 4 times a
+    round; the partials add in cluster order.  Bits bit for bit
+    ``cohort-wire``'s, params within 1e-4 of them (f32 roundoff of the
+    reassociated fold).  Returns the launch counts."""
+    import numpy as np
+    from _torch_parity import params_gap
+    from repro_torch.fl.loop import deterministic_cudnn
+    from repro_torch.sim import get_scenario, make_engine
+
+    scn = dataclasses.replace(get_scenario("cohort-hierarchy"),
+                              T=COHORT_ROUNDS, eval_every=1)
+    eng = make_engine(scn, wire_q(), None, device=dev, init_params=init)
+    with deterministic_cudnn():
+        counts, state = drive(eng, COHORT_ROUNDS, per_round(4),
+                              "cohort-hierarchy")
+    ck = Checks("cohort-hierarchy")
+    ck.true("bits bit for bit cohort-wire's in every round", all(
+        np.array_equal(a.bits_per_user, b.bits_per_user)
+        for a, b in zip(state.logs, flat_run.logs, strict=True)))
+    ck.at_most("params gap to cohort-wire", params_gap(state.params,
+                                                        flat_run.params),
+               1e-4)
+    ck.done()
+    return {k: counts[k] for k in WIRE_KERNELS}
+
+
+def scale_engine(K, C, dev):
+    """The paper CNN at full width with one sample a user, L=1 and batch
+    1 (``benchmarks/cohort_scale.py``'s data shape), no channel; cohorts
+    of C on the packed plane, or the vectorized step when C is None."""
+    import numpy as np
+    from repro_torch.configs.paper_cnn import CIFAR10
+    from repro_torch.data import make_image_classification
+    from repro_torch.fl.loop import FLConfig
+    from repro_torch.kernels import WirePath
+    from repro_torch.sim import EngineConfig, VectorizedFLEngine
+
+    ds = make_image_classification(n_samples=K + 200, hw=32, seed=0)
+    train = dataclasses.replace(ds, x=ds.x[:K], y=ds.y[:K])
+    test = dataclasses.replace(ds, x=ds.x[K:], y=ds.y[K:])
+    return VectorizedFLEngine(
+        train, test, [np.array([i]) for i in range(K)], CIFAR10, wire_q(),
+        None, None, FLConfig(T=1, L=1, batch_size=1, seed=0, eval_every=1),
+        engine=EngineConfig(wire=WirePath(plane="packed", cohort_size=C)),
+        device=dev)
+
+
+def cohort_scale(dev):
+    """K = 2,000 and 20,000 users (cohorts of 256) and the vectorized
+    step at K = 2,000: one round each after a warm-up round, its wall
+    time (closed by a synchronize) and the round's peak device memory
+    (``torch.cuda.max_memory_allocated``, and above what was allocated
+    before the round) beside K*d*4 and C*d*4.  The cohort peak should
+    track C, not K.  Returns the launch counts of the timed rounds."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+
+    counts, peaks = {k: 0 for k in WIRE_KERNELS}, {}
+    for K, C in SCALE_POINTS:
+        eng = scale_engine(K, C, dev)
+        d = eng.d
+        state = eng.start_run()
+        eng.train_round(state, 1)                    # warm-up
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        work = eng.train_round(state, 2)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        add_counts(counts, LAUNCHES)
+        n = -(-K // C) if C else 1
+        if any(LAUNCHES[k] != n for k in WIRE_KERNELS):
+            raise AssertionError(f"K={K} C={C}: launches {dict(LAUNCHES)}, "
+                                 f"expected {n} of K1, K2, K3")
+        if not np.all(np.isfinite(work.bits_np)) or not all(
+                bool(torch.isfinite(v).all()) for v in state.params.values()):
+            raise AssertionError(f"K={K} C={C}: non-finite bits or params")
+        label = f"K={K} " + (f"C={C}" if C else "vectorized")
+        peaks[label] = peak - base
+        print(f"{label}: round {wall:.3f} s, peak {peak / 1e9:.3f} GB "
+              f"({(peak - base) / 1e9:.3f} GB above the "
+              f"{base / 1e9:.3f} GB held before the round); K*d*4 = "
+              f"{K * d * 4 / 1e9:.2f} GB, C*d*4 = "
+              f"{(C or K) * d * 4 / 1e9:.2f} GB; mean bits "
+              f"{work.bits_np.mean():.1f}; {n} cohorts")
+        del eng, state, work
+        torch.cuda.empty_cache()
+    small, big = (peaks[f"K={K} C={C}"] for K, C in SCALE_POINTS[:2])
+    print(f"  cohort peak above the held memory at K=20,000 / at K=2,000: "
+          f"{big / small:.3f} ({'tracks C' if big <= 1.25 * small else 'grows with K'})")
+    return counts
+
+
+def layer_budget(dev, init):
+    """``layer-budget-wire`` (norm leaves lambda 0.1, b 12; matmul leaves
+    lambda 0.3, b 6): first K1-K3 against their plain versions bit for
+    bit at U=20 and each of the paper CNN's six segment shapes with that
+    segment's lambda and b, with and without ``acc``, K2 on both rules;
+    then ``BUDGET_ROUNDS`` rounds, 6 launches each of K1, K2, K3 a
+    round, every launch held to its plain version on its inputs
+    (``WireSpy``); the per-segment bits identity on one more round's
+    deltas; and a uniform budget bit for bit ``fused-wire`` over one
+    round.  Returns the launch counts of the rounds."""
+    import numpy as np
+    import torch
+    from _torch_parity import (WireSpy, run_mismatches,
+                               segment_bits_identity)
+    from repro_torch.core.quantize import LayerBudget
+    from repro_torch.fl.loop import deterministic_cudnn
+    from repro_torch.kernels import ops
+    from repro_torch.sim import get_scenario, make_engine
+
+    scn = dataclasses.replace(get_scenario("layer-budget-wire"),
+                              T=BUDGET_ROUNDS, eval_every=1)
+    eng = make_engine(scn, wire_q(), None, device=dev, init_params=init)
+    segs = eng._segments
+    print("segments: " + "; ".join(
+        f"{s.group} [{s.start}, {s.stop}) lam {s.lambda_} b {s.b}"
+        for s in segs))
+    n_case = 0
+    for seg in segs:
+        for with_acc in (False, True):
+            check_kernels(dev, scn.K, seg.size, seg.lambda_, seg.b, with_acc)
+            n_case += 1
+    print(f"K1-K3 at the {len(segs)} segment shapes (U={scn.K}, W from "
+          f"{min(-(-s.size // 128) for s in segs)} to "
+          f"{max(ops.sign_pad_len(s.size) // 128 for s in segs)}): {n_case} "
+          "cases bit-exact, K2 on both rules")
+    with WireSpy() as spy:
+        counts, state = drive(eng, BUDGET_ROUNDS, per_round(len(segs)),
+                              "layer-budget-wire")
+    held = spy.check(np.zeros(scn.K))
+    print(f"  every launch of the rounds bit for bit its plain version: "
+          f"{held}")
+    xs, ys = eng.draw_minibatches(state)
+    with torch.no_grad():
+        flat = eng._batched_local(state.params, xs, ys)
+        _, bits, aux = ops.segmented_wire_aggregate(flat, eng._weights, segs)
+        heads = [ops.mixed_res_encode(flat[:, s.start:s.stop], s.lambda_,
+                                      s.b).head for s in segs]
+    segment_bits_identity(bits, aux["segment_bits"], heads, segs)
+    w = eng._weights
+    for label, fn in (("the six segments", lambda: ops.segmented_wire_aggregate(
+            flat, w, segs)), ("one global segment", lambda:
+            ops.mixed_res_wire_aggregate(flat, w, MAIN["lam"], MAIN["b"]))):
+        ks = device_kernels(fn, 10)
+        by_name = {}
+        for k, (n, us) in ks.items():
+            name = k.replace("(anonymous namespace)::", "").replace(
+                "void ", "").split("(")[0][:32]
+            by_name[name] = round(by_name.get(name, 0.0) + n * us, 2)
+        print(f"  encode + reduce of U={scn.K} users' deltas over {label}: "
+              f"{device_us(ks):.2f} us on the device; by kernel {by_name}")
+    print("  bits = sum over segments of d_seg (b_seg s_seg + 1 - s_seg) + "
+          f"32 on one more round's deltas: ok (mean bits "
+          f"{float(bits.double().mean()):.1f})")
+    uni = dataclasses.replace(get_scenario("fused-wire"), T=1, eval_every=1)
+    runs = []
+    with deterministic_cudnn():
+        for budget in (None, LayerBudget.uniform()):
+            e = make_engine(dataclasses.replace(uni, budget=budget), wire_q(),
+                            None, device=dev, init_params=init)
+            runs.append(e.run())
+    bad = run_mismatches(runs[1], runs[0])
+    ck = Checks("layer budget")
+    ck.true("LayerBudget.uniform() bit for bit fused-wire", not bad,
+            str(bad[:4]))
+    ck.done()
+    return {k: counts[k] for k in WIRE_KERNELS}
+
+
+
+def async_rounds(dev):
+    """Async rounds at K=20 over ``paper-table3``'s kind of channel
+    (M=16, N=4), mixed-resolution(0.2, 10) under bisection-LP:
+    ``async-q50`` on the dense plane as registered and on the packed
+    plane (``async-q50-wire``), ``ASYNC_ROUNDS`` rounds each through
+    ``run_cell`` (the host solve) and through ``run_grid_batched``;
+    ``async-churn`` through ``run_cell``.  On the packed plane a round
+    launches K1 and K2 once (the fresh uploads) and K3 once over 2K = 40
+    slots (fresh and buffered planes), each launch held bit for bit to
+    its plain version on its inputs (``WireSpy``).  ``async-q50-wire``
+    with R = 2 replicates through ``run_grid_batched``: K1-K3 once a
+    replicate a round, replicate 0 bit for bit the unreplicated run.
+    Then ``async-sync-reduction`` bit for bit the lockstep run over
+    ``SYNC_ROUNDS`` rounds in both drivers (inside
+    ``deterministic_cudnn``).  Prints each run's wall time a round, mean
+    staleness and dropped uploads.  Returns the launch counts."""
+    import numpy as np
+    import torch
+    from _torch_parity import WireSpy, run_mismatches
+    from repro_torch.fl.loop import deterministic_cudnn
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.sim import get_scenario, run_cell, run_grid_batched
+
+    q = ("mixed-resolution", {"lambda_": MAIN["lam"], "b": MAIN["b"]})
+    ck, counts = Checks("async"), {k: 0 for k in WIRE_KERNELS}
+    for name in ("async-q50", "async-q50-wire", "async-churn"):
+        scn = dataclasses.replace(get_scenario(name), T=ASYNC_ROUNDS,
+                                  eval_every=1)
+        drivers = (("run_cell", lambda: [run_cell(
+            scn, q, "bisection-lp", quick=False, device=dev)]),)
+        if name != "async-churn":
+            drivers += (("run_grid_batched", lambda: run_grid_batched(
+                [scn], {"mixed": q}, {"bisection-lp": "bisection-lp"},
+                quick=False, device=dev)),)
+        for driver, fn in drivers:
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            with WireSpy() as spy:
+                res = fn()[0]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            held = spy.check(np.zeros(2 * scn.K))
+            logs = res.result.logs
+            packed = scn.aggregation == "wire"
+            want = ASYNC_ROUNDS if packed else 0
+            ck.true(f"{name} / {driver}: {len(logs)} rounds, K1, K2, K3 "
+                    f"{want} launches each, all bit for bit their plain "
+                    "versions (K3 over 2K = 40 slots)",
+                    len(logs) == ASYNC_ROUNDS
+                    and all(LAUNCHES[k] == want for k in WIRE_KERNELS),
+                    f"{held}")
+            add_counts(counts, LAUNCHES)
+            vals = [v for l in logs for v in (l.uplink_latency_s,
+                                              l.test_acc, l.mean_staleness)]
+            ck.true(f"{name} / {driver}: finite logs and params",
+                    all(math.isfinite(v) for v in vals) and all(
+                        bool(torch.isfinite(v).all())
+                        for v in res.result.params.values()))
+            print(f"{name} / {driver}: {wall / ASYNC_ROUNDS:.3f} s a round "
+                  f"(setup included), event-clock uplinks "
+                  f"{[round(l.uplink_latency_s, 6) for l in logs]}, mean "
+                  f"staleness {res.summary['mean_staleness']:.4f}, "
+                  f"dropped uploads {sum(l.dropped_uploads for l in logs)}, "
+                  f"effective participation "
+                  f"{res.summary['effective_participation']:.3f}")
+    # the replicate axis on the packed plane loops the replicates
+    wire = dataclasses.replace(get_scenario("async-q50-wire"),
+                               T=ASYNC_ROUNDS, eval_every=1)
+    grid = lambda R: run_grid_batched(
+        [wire], {"mixed": q}, {"bisection-lp": "bisection-lp"},
+        quick=False, device=dev, replicates=R)[0].result
+    with deterministic_cudnn():
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with WireSpy() as spy:
+            rep = grid(2)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        held = spy.check(np.zeros(2 * wire.K))
+        want = 2 * ASYNC_ROUNDS
+        ck.true(f"async-q50-wire / run_grid_batched, R=2: K1, K2, K3 "
+                f"{want} launches each, all bit for bit their plain "
+                "versions", all(LAUNCHES[k] == want for k in WIRE_KERNELS),
+                f"{held}")
+        add_counts(counts, LAUNCHES)
+        one = grid(None)
+    bad = run_mismatches(rep[0], one)
+    ck.true("async-q50-wire, R=2: replicate 0 bit for bit the "
+            "unreplicated run", not bad, str(bad[:4]))
+    ck.true("async-q50-wire, R=2: replicate 1 another trajectory",
+            bool(run_mismatches(rep[1], one)))
+    print(f"async-q50-wire / run_grid_batched, R=2: "
+          f"{wall / ASYNC_ROUNDS:.3f} s a round (setup included)")
+    sync = dataclasses.replace(get_scenario("async-sync-reduction"),
+                               T=SYNC_ROUNDS, eval_every=1)
+    lock = dataclasses.replace(sync, async_mode=False)
+    with deterministic_cudnn():
+        for driver, fn in (
+                ("run_cell", lambda s: run_cell(s, q, "bisection-lp",
+                                                quick=False, device=dev)),
+                ("run_grid_batched", lambda s: run_grid_batched(
+                    [s], {"mixed": q}, {"bisection-lp": "bisection-lp"},
+                    quick=False, device=dev)[0])):
+            bad = run_mismatches(fn(sync).result, fn(lock).result)
+            ck.true(f"async-sync-reduction bit for bit the lockstep run "
+                    f"over {SYNC_ROUNDS} rounds ({driver})", not bad,
+                    str(bad[:4]))
+    ck.done()
+    return counts
+
+
+NEW_PHASES = ("cohorts", "fold", "hierarchy", "scale", "budget", "async")
+
+
+def user_axis_and_round_modes(dev, launches, only=NEW_PHASES):
+    """The streaming cohorts, AP clusters, the cohort scale, per-layer
+    budgets and async rounds, each phase's K1-K3 launches added into
+    ``launches``.  ``only`` names the phases of :data:`NEW_PHASES` to
+    run (all of them on the main path); a failed check raises."""
+    init = cohort_run = None
+    if "cohorts" in only or "hierarchy" in only or "budget" in only:
+        phase(f"cohorts: cohort-wire (K=20, C=8) and C=20 beside fused-wire, "
+              f"{COHORT_ROUNDS} rounds each")
+        counts, cohort_run, init = cohorts(dev)
+        add_counts(launches, counts)
+    if "fold" in only:
+        phase(f"cohort fold on the card: U={MAIN['U']} users in chunks of "
+              f"{COHORT_FOLD_CHUNKS} through K3's acc")
+        cohort_fold(dev)
+    if "hierarchy" in only:
+        phase(f"cohort-hierarchy (4 AP clusters, C=8): {COHORT_ROUNDS} rounds")
+        add_counts(launches, cohort_hierarchy(dev, init, cohort_run))
+    if "scale" in only:
+        phase(f"cohort scale: the paper CNN, one sample a user, at "
+              f"{SCALE_POINTS} (K, C)")
+        add_counts(launches, cohort_scale(dev))
+    if "budget" in only:
+        phase(f"layer-budget-wire: the segment shapes, {BUDGET_ROUNDS} rounds")
+        add_counts(launches, layer_budget(dev, init))
+    if "async" in only:
+        phase(f"async rounds: async-q50 (dense, packed), async-churn, "
+              f"{ASYNC_ROUNDS} rounds; async-sync-reduction")
+        add_counts(launches, async_rounds(dev))
+
+
 def build_all():
     """Build every kernel source at once, one nvcc process each."""
     from concurrent.futures import ThreadPoolExecutor
@@ -2325,6 +2797,11 @@ def main():
           f"on the packed and signplane planes), {REPL_ROUNDS} rounds each")
     for k, v in phy_replicates(dev).items():
         launches[k] += v
+    user_axis_and_round_modes(dev, launches)
+    # what the phases leave in reference cycles (0.18-0.56 GiB on the
+    # card) goes before the serve path's weights are made
+    gc.collect()
+    torch.cuda.empty_cache()
 
     phase("baselines: classic, top-q, LAQ, AQUILA; Dinkelbach, max-sum-rate")
     t0 = time.perf_counter()

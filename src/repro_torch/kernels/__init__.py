@@ -18,8 +18,9 @@ from .mixed_res import (H_DBAR, H_DWQ, H_INF, H_LAM, H_STEP, code_width,
                         code_words_per_row)
 from .ops import (MixedResWire, flash_decode_op, mixed_res_encode,
                   mixed_res_wire_aggregate, mixed_res_wire_reduce,
-                  packed_sign_weighted_sum, sign_dequant_reduce_op,
-                  sign_pad_len, signpack_op, wire_view)
+                  packed_sign_weighted_sum, segmented_wire_aggregate,
+                  sign_dequant_reduce_op, sign_pad_len, signpack_op,
+                  wire_head_stats, wire_view)
 from .wire import PACKED_DIM_LIMIT, WirePath, check_packed_dim
 
 __all__ = [
@@ -28,5 +29,6 @@ __all__ = [
     "code_width", "code_words_per_row", "flash_decode_op",
     "mixed_res_encode", "mixed_res_wire_aggregate", "mixed_res_wire_reduce",
     "packed_sign_weighted_sum", "reset_launch_counts",
-    "sign_dequant_reduce_op", "sign_pad_len", "signpack_op", "wire_view",
+    "segmented_wire_aggregate", "sign_dequant_reduce_op", "sign_pad_len",
+    "signpack_op", "wire_head_stats", "wire_view",
 ]

@@ -4,7 +4,10 @@ reduce) and the serve path's decode attention.
 Packed plane: ``mixed_res_encode`` turns U stacked deltas into packed
 planes in two passes (K1, a scalar epilogue, K2);
 ``mixed_res_wire_reduce`` decodes and weights all users' planes in one
-pass (K3).  Neither materializes a dense per-user reconstruction.
+pass (K3), optionally onto a carried accumulator (the cohort fold).
+Neither materializes a dense per-user reconstruction.
+``segmented_wire_aggregate`` runs the pair once a per-layer budget
+segment.
 
 Sign plane: ``packed_sign_weighted_sum`` packs G sign planes in one K4
 launch and reduces them with per-peer scales in one K5 launch.
@@ -179,15 +182,83 @@ def mixed_res_wire_aggregate(flat: torch.Tensor, weights: torch.Tensor,
     U, d = flat.shape
     wire = mixed_res_encode(flat, lambda_, b, path=path)
     agg = mixed_res_wire_reduce(wire, weights, b, d, path=path)
-    inf = wire.head[:, H_INF]
-    dw_q = wire.head[:, H_DWQ]
-    dbar = wire.head[:, H_DBAR]
+    bits, aux = wire_head_stats(wire.head, b, d)
+    return agg, bits, aux
+
+
+def wire_head_stats(head: torch.Tensor, b: int, d: int):
+    """Per-user payload bits [U] and the aux diagnostics from stacked
+    wire headers [U, 8]: the paper's ``d (b s + 1 - s) + 32`` in f32 in
+    the JAX package's op order (``d + 32`` for an all-zero delta)."""
+    inf = head[:, H_INF]
+    dw_q = head[:, H_DWQ]
+    dbar = head[:, H_DBAR]
     s = true_div(dbar, d)
     bits = d * (b * s + 1.0 - s) + 32.0
     bits = torch.where(inf > 0, bits, float(d) + 32.0)
     aux = {"s": s, "dbar": dbar.to(torch.int32), "r": inf - dw_q,
            "dw_q": dw_q, "inf": inf}
-    return agg, bits, aux
+    return bits, aux
+
+
+def segmented_wire_aggregate(flat: torch.Tensor, weights: torch.Tensor,
+                             segments, *, path: Optional[WirePath] = None):
+    """Per-layer-budget wire aggregation (DESIGN.md §13): one
+    :func:`mixed_res_wire_aggregate` a contiguous budget segment, each
+    with its own ``(lambda_, b)``, concatenated into the full [d]
+    aggregate.
+
+    ``segments``: objects with ``start``, ``size``, ``lambda_`` and
+    ``b`` tiling [0, d) in order (``repro_torch.core.quantize.Segment``).
+    A segment's columns ``flat[:, start:stop]`` are a strided view;
+    :func:`wire_view` copies them contiguous before the kernels see
+    them.  Returns ``(agg [d], bits [U], aux)``: ``bits`` the exact
+    sum of the per-segment payloads (a 32-bit header each), summed left
+    to right in f32, and ``aux["segment_bits"]`` [U, n_seg] what it
+    sums."""
+    U, d = flat.shape
+    segments = tuple(segments)
+    validate_segments(segments, d)
+    aggs, seg_bits, dbar = [], [], None
+    for seg in segments:
+        agg_s, bits_s, aux_s = mixed_res_wire_aggregate(
+            flat[:, seg.start:seg.start + seg.size], weights,
+            seg.lambda_, seg.b, path=path)
+        aggs.append(agg_s)
+        seg_bits.append(bits_s)
+        db = aux_s["dbar"]
+        dbar = db if dbar is None else dbar + db
+    bits, aux = segment_stats(seg_bits, dbar, d)
+    return torch.cat(aggs), bits, aux
+
+
+def validate_segments(segments, d: int) -> None:
+    """Raise unless ``segments`` tile [0, d) contiguously."""
+    offset = 0
+    for seg in segments:
+        if seg.start != offset or seg.size <= 0:
+            raise ValueError(
+                f"segments must tile the flat vector contiguously: segment "
+                f"{seg} at expected offset {offset}")
+        offset += seg.size
+    if offset != d:
+        raise ValueError(
+            f"segments cover {offset} entries but the flat vector has {d}")
+
+
+def segment_stats(seg_bits, dbar: torch.Tensor, d: int):
+    """``(bits [U], aux)`` of a per-segment quantize: the per-segment
+    payloads [U] each summed left to right in f32 (one rounding a
+    segment, the same on every device), ``s`` and ``dbar`` over the
+    whole vector and ``aux["segment_bits"]`` [U, n_seg] what the bits
+    sum."""
+    bits = seg_bits[0]
+    for sb in seg_bits[1:]:
+        bits = bits + sb
+    aux = {"s": true_div(dbar.to(torch.float32), float(d)),
+           "dbar": dbar.to(torch.int32),
+           "segment_bits": torch.stack(seg_bits, dim=1)}
+    return bits, aux
 
 
 def flash_decode_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -11,9 +11,17 @@ Planes (``plane``):
   plus a dense weighted correction on the high-resolution support;
 * ``"dense"`` — the dense reconstructions reduced by one weighted sum.
 
-Cohort streaming, AP clusters, per-layer budgets and the plane
-checksum are not ported yet and raise :class:`NotImplementedError` on
-every plane.
+Streaming knobs (DESIGN.md §12–13):
+
+* ``cohort_size`` — the engine trains, encodes and folds the K users in
+  cohorts of C on the packed plane, so no ``[K, d]`` buffer exists;
+* ``clusters`` — AP-cluster groups, each a partial ``[d]`` aggregate,
+  combined in fixed cluster order (needs ``cohort_size``);
+* ``budget`` — a per-layer :class:`repro_torch.core.quantize.LayerBudget`;
+  a uniform one is ``None`` (:attr:`WirePath.effective_budget`).
+
+The plane checksum is not ported yet and raises
+:class:`NotImplementedError`.
 
 ``lowering``:
 
@@ -66,20 +74,56 @@ class WirePath:
         if self.lowering not in LOWERINGS:
             raise ValueError(f"unknown wire lowering {self.lowering!r}; "
                              f"have {LOWERINGS}")
-        # the JAX spec's plane rules, before the unported knobs
+        # the JAX spec's rules, before the unported checksum
+        if self.cohort_size is not None and self.cohort_size < 1:
+            raise ValueError(
+                f"cohort_size must be >= 1 or None, got {self.cohort_size}")
+        if self.clusters < 1:
+            raise ValueError(f"clusters must be >= 1, got {self.clusters}")
         if self.cohort_size is not None and self.plane != "packed":
             raise ValueError(
                 "cohort streaming folds packed wire planes; use "
                 f"plane='packed' (got plane={self.plane!r})")
+        if self.clusters > 1 and self.cohort_size is None:
+            raise ValueError(
+                "clusters > 1 partially aggregates cohort streams; set "
+                "cohort_size as well")
+        if self.budget is not None and not (
+                hasattr(self.budget, "segments_for")
+                and hasattr(self.budget, "is_uniform")):
+            raise ValueError(
+                "budget must be a repro_torch.core.quantize.LayerBudget "
+                f"(got {type(self.budget).__name__})")
         if self.checksum and self.plane != "packed":
             raise ValueError(
                 "checksum folds the packed uint32 wire planes; use "
                 f"plane='packed' (got plane={self.plane!r})")
-        for field, off in (("cohort_size", None), ("clusters", 1),
-                           ("budget", None), ("checksum", False)):
-            if getattr(self, field) != off:
-                raise NotImplementedError(
-                    f"WirePath.{field} is not ported to repro_torch yet")
+        if self.budget is not None and not self.budget.is_uniform:
+            if self.plane == "signplane":
+                raise ValueError(
+                    "per-layer budgets are not supported on the signplane "
+                    "plane; use plane='packed' or plane='dense'")
+            if self.streaming or self.clusters > 1:
+                raise ValueError(
+                    "per-layer budgets do not compose with cohort "
+                    "streaming or AP clusters yet; drop cohort_size/"
+                    "clusters or use LayerBudget.uniform()")
+        if self.checksum:
+            raise NotImplementedError(
+                "WirePath.checksum is not ported to repro_torch yet")
+
+    @property
+    def effective_budget(self):
+        """The budget when it changes anything, else None: a uniform
+        budget keeps the global path bit for bit."""
+        if self.budget is not None and not self.budget.is_uniform:
+            return self.budget
+        return None
+
+    @property
+    def streaming(self) -> bool:
+        """True when the engine folds the users in cohorts."""
+        return self.cohort_size is not None
 
     def use_kernel(self, t: torch.Tensor) -> bool:
         """True when the op on tensor ``t`` runs the CUDA kernels (K1–K3

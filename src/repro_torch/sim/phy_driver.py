@@ -40,13 +40,20 @@ become across-replicate means with ``<metric>_ci95`` half-widths, and
 ``replicates=1`` reproduces the unreplicated driver bit for bit on
 training metrics.
 
-Async scenarios, resilience, checkpoints and the mesh are not ported
-and raise :class:`NotImplementedError`; the port has no observability
-taps.
+Async scenarios (``Scenario.async_active``, DESIGN.md section 11) keep
+one training track per (quantizer, power) cell, since arrival times
+feed back into training; the solve is still one batched call per power
+spec a round, and after it each async cell runs the host event clock
+and one aggregate call (``complete_round_async``) before its
+accounting, which charges the event clock's round duration.
+
+Resilience, checkpoints and the mesh are not ported and raise
+:class:`NotImplementedError`; the port has no observability taps.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
@@ -58,8 +65,7 @@ from repro_torch.phy import (batched_solver, bundle_from_realization_grid,
                              bundle_from_realizations)
 
 from .engine import (ReplicatedRoundWork, ReplicatedRunState, RoundWork,
-                     RunState, UplinkSolution, VectorizedFLEngine,
-                     straggler_gap)
+                     RunState, UplinkSolution, VectorizedFLEngine)
 from .metrics import summarize_replicates, write_metrics_csv
 from .scenarios import Scenario, build_problem
 from .sweep import (PowerSpec, QuantSpec, SweepCell, SweepResult,
@@ -194,11 +200,17 @@ def _run_scenario_lockstep(tracks: List[_Track], T: int, verbose: bool,
         works = [track_work[id(c.track)] for c in live]
         sols = _solve_round_batched(live, works, cache, dtype, device)
         for cell, work, (uplink, pu) in zip(live, works, sols):
+            eng = cell.track.engine
+            # an async track is one (quantizer, power) cell, so the
+            # aggregate completes on the track's own training state
+            info = eng.complete_round_async(cell.track.state, work, pu) \
+                if eng.engine_cfg.async_active else None
             # accounting sees the shared trajectory's current params (a
             # budget-stopped cell keeps those of ITS last round)
             cell.acct.params = cell.track.state.params
-            cell.alive = cell.track.engine.finish_round(
-                cell.acct, work, uplink, verbose=verbose, per_user_s=pu)
+            cell.alive = eng.finish_round(
+                cell.acct, work, uplink, verbose=verbose, async_info=info,
+                per_user_s=pu)
 
 
 def _solve_round_replicated(cells: List[_ReplCell],
@@ -258,6 +270,12 @@ def _run_scenario_lockstep_replicated(tracks: List[_ReplTrack], T: int,
         works = [track_work[id(c.track)] for c in live]
         uplinks, per_user = _solve_round_replicated(live, works, cache, R,
                                                     dtype, device)
+        # async cells aggregate before the eval (sync cells aggregated
+        # in the train step)
+        infos = [cell.track.engine.complete_round_replicated_async(
+                     cell.track.state, work, pu)
+                 if cell.track.engine.engine_cfg.async_active else None
+                 for cell, work, pu in zip(live, works, per_user)]
         # per-replicate accuracy, once per track on eval rounds, only for
         # replicates some cell still accounts
         track_acc: Dict[int, Optional[np.ndarray]] = {
@@ -266,9 +284,10 @@ def _run_scenario_lockstep_replicated(tracks: List[_ReplTrack], T: int,
                     [c.alive for c in tr.cells]))
             if tr.engine.eval_due(t) else None
             for tr in live_tracks}
-        for cell, work, uplink, pu in zip(live, works, uplinks, per_user):
+        for cell, work, uplink, pu, info in zip(live, works, uplinks,
+                                                per_user, infos):
             _finish_replicated_cell(cell, work, uplink, track_acc, t, R,
-                                    verbose, per_user=pu)
+                                    verbose, async_info=info, per_user=pu)
     for tr in tracks:
         for cell in tr.cells:
             for r in np.flatnonzero(cell.alive):
@@ -279,6 +298,7 @@ def _finish_replicated_cell(cell: _ReplCell, work: ReplicatedRoundWork,
                             uplink: np.ndarray,
                             track_acc: Dict[int, Optional[np.ndarray]],
                             t: int, R: int, verbose: bool,
+                            async_info=None,
                             per_user: Optional[np.ndarray] = None) -> None:
     from repro_torch.fl.loop import RoundLog
 
@@ -286,16 +306,15 @@ def _finish_replicated_cell(cell: _ReplCell, work: ReplicatedRoundWork,
     comp_lat = eng.comp_lat
     accs = track_acc[id(cell.track)]
     for r in np.flatnonzero(cell.alive):
-        up = float(uplink[r])
-        gap = 0.0 if per_user is None else straggler_gap(per_user[r],
-                                                         work.active[r])
+        # async: the event clock's round duration burns the budget
+        up, fields = eng.round_log_fields(
+            uplink[r], work.active[r], async_info,
+            None if per_user is None else per_user[r], r=int(r))
         cell.cum_latency[r] += up + comp_lat
         cell.logs[r].append(RoundLog(
             t, work.bits_np[r], up, comp_lat, float(cell.cum_latency[r]),
             float(work.mean_s[r]), None if accs is None else float(accs[r]),
-            straggler_gap_s=gap,
-            effective_participation=float(np.sum(work.active[r] > 0))
-            / eng.K))
+            **fields))
         cell.rounds_done[r] = t
         if eng.budget_spent(cell.cum_latency[r]):
             cell.alive[r] = False
@@ -363,13 +382,19 @@ def run_grid_batched(scenarios: List[Union[str, Scenario]],
             else (scn.replicates if scn.replicates > 1 else None)
         problem = build_problem(scn)
         chan = problem[4]
+        # sync cells of a quantizer share one training track (power never
+        # feeds back into training); async arrival times do, so an async
+        # scenario gets a track a (quantizer, power) cell
+        pgroups = ([[item] for item in powers.items()]
+                   if scn.async_active else [list(powers.items())])
         if R is not None:
             tracks_r: List[_ReplTrack] = []
-            for qlabel, qspec in quantizers.items():
+            for (qlabel, qspec), group in itertools.product(
+                    quantizers.items(), pgroups):
                 engine = _make_engine(scn, problem, qspec, None, dev)
                 track = _ReplTrack(engine=engine,
                                    state=engine.start_replicated_run(R))
-                for plabel, pspec in powers.items():
+                for plabel, pspec in group:
                     pc = _make_power(pspec)
                     track.cells.append(_ReplCell(
                         track=track, power=pc if chan is not None else None,
@@ -386,10 +411,11 @@ def run_grid_batched(scenarios: List[Union[str, Scenario]],
                         for track in tracks_r for cell in track.cells]
         else:
             tracks: List[_Track] = []
-            for qlabel, qspec in quantizers.items():
+            for (qlabel, qspec), group in itertools.product(
+                    quantizers.items(), pgroups):
                 engine = _make_engine(scn, problem, qspec, None, dev)
                 track = _Track(engine=engine, state=engine.start_run())
-                for plabel, pspec in powers.items():
+                for plabel, pspec in group:
                     pc = _make_power(pspec)
                     acct = dataclasses.replace(track.state, logs=[],
                                                cum_latency=0.0,

@@ -7,14 +7,20 @@ hyper-parameters, CFmMIMO network shape, engine behaviour) that
 the same run in both packages; the registry holds the entries the
 port runs (the paper's Tables II and III, ``churn-0.7``,
 ``monte-carlo-channel``, ``monte-carlo-replicated``, ``hetero-data``,
-``signplane-wire`` and ``fused-wire``), each as the JAX package
-registers it.
+``signplane-wire``, ``fused-wire``, ``cohort-wire``,
+``cohort-hierarchy``, ``layer-budget-wire``, ``async-q50``,
+``async-churn`` and ``async-sync-reduction``), each as the JAX package
+registers it, plus ``async-q50-wire``, ``async-q50`` on the packed
+plane (so that an async round runs K1–K3).  :func:`async_scenarios`
+makes the staleness sweep axes.
 
 ``aggregation`` picks the wire plane: ``"dense"`` (``paper-table3``'s
 default), ``"signplane"`` and ``"wire"`` (the packed plane).
-``replicates`` > 1 sends a scenario to the batched driver's replicate
-axis.  Cohorts, clusters, budgets, async rounds and registry
-transformers are not ported and raise :class:`NotImplementedError`.
+``cohort_size`` and ``clusters`` stream the users (DESIGN.md §12),
+``budget`` sets per-layer budgets (§13), ``async_mode`` with a deadline
+runs async rounds (§11), and ``replicates`` > 1 sends a scenario to the
+batched driver's replicate axis.  The registry transformers are not
+ported and raise :class:`NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -24,11 +30,12 @@ from typing import Dict, List, Optional, Tuple
 from repro_torch.configs.paper_cnn import (CIFAR10, CIFAR100, FASHION,
                                            PaperCNNConfig)
 from repro_torch.core.channel import CFmMIMOConfig, make_channel
+from repro_torch.core.quantize import LayerBudget
 from repro_torch.data import (make_image_classification, partition_dirichlet,
                               partition_iid, partition_powerlaw)
 from repro_torch.kernels import WirePath
 
-from .engine import EngineConfig
+from .engine import EngineConfig, StalenessConfig
 
 _PLANES = {"dense": "dense", "signplane": "signplane", "wire": "packed"}
 
@@ -47,7 +54,8 @@ class Scenario:
     # registry transformers are not ported
     model: str = "paper-cnn"
     seq_len: int = 32                    # LM window length (model != cnn)
-    # per-layer mixed-resolution budget (not ported)
+    # per-layer mixed-resolution budget (a LayerBudget) on
+    # WirePath.budget; None or a uniform budget keeps the global path
     budget: Optional[object] = None
     # data
     dataset: str = "cifar10-syn"
@@ -73,12 +81,15 @@ class Scenario:
     # wire-path plane: "dense" | "signplane" | "wire" (the packed plane)
     aggregation: str = "dense"
     fused: bool = True               # production sweeps run fully fused
-    # streaming cohorts and AP clusters (not ported)
+    # streaming cohorts (the packed plane: train, encode and fold this
+    # many users at a time) and AP clusters (needs cohort_size)
     cohort_size: Optional[int] = None
     clusters: int = 1
     seed: int = 0
-    # Monte-Carlo replicates (run_grid_batched) and asynchronous rounds
-    # (not ported)
+    # Monte-Carlo replicates (run_grid_batched) and asynchronous rounds:
+    # async_mode with neither deadline set is the sync reduction (the
+    # lockstep path); deadline_quantile closes each round at that
+    # quantile of the pending completion times
     replicates: int = 1
     async_mode: bool = False
     deadline_s: Optional[float] = None
@@ -101,25 +112,30 @@ class Scenario:
             else max(1, self.T // 5)
 
     def engine_config(self) -> EngineConfig:
-        """The engine configuration this scenario asks for; raises
-        :class:`NotImplementedError` for what the port does not run."""
-        unported = {"cohort_size": (self.cohort_size, None),
-                    "clusters": (self.clusters, 1),
-                    "budget": (self.budget, None)}
-        for name, (value, off) in unported.items():
-            if value != off:
-                raise NotImplementedError(
-                    f"Scenario.{name}={value!r} is not ported to "
-                    "repro_torch yet")
+        """The engine configuration this scenario asks for."""
         if self.aggregation not in _PLANES:
             raise ValueError(f"unknown aggregation {self.aggregation!r}; "
                              f"have {tuple(_PLANES)}")
-        return EngineConfig(wire=WirePath(plane=_PLANES[self.aggregation]),
+        wire = WirePath(plane=_PLANES[self.aggregation],
+                        cohort_size=self.cohort_size,
+                        clusters=self.clusters, budget=self.budget)
+        return EngineConfig(wire=wire,
                             fused=self.fused,
                             participation=self.participation,
                             redraw_channel_every=self.redraw_channel_every,
                             channel_seed=self.seed,
-                            async_mode=self.async_mode)
+                            async_mode=self.async_mode,
+                            staleness=StalenessConfig(
+                                deadline_s=self.deadline_s,
+                                deadline_quantile=self.deadline_quantile,
+                                alpha=self.staleness_alpha,
+                                max_staleness=self.max_staleness))
+
+    @property
+    def async_active(self) -> bool:
+        """``EngineConfig.async_active`` before any engine exists: the
+        batched driver gives async cells a track each."""
+        return self.engine_config().async_active
 
 
 def build_problem(scn: Scenario):
@@ -184,6 +200,30 @@ def list_scenarios() -> List[str]:
     return sorted(SCENARIOS)
 
 
+def async_scenarios(alphas=(0.0, 1.0), quantiles=(0.5, 0.9),
+                    depths=(1, 2), base: Optional[Scenario] = None
+                    ) -> List[Scenario]:
+    """The staleness sweep axes: alpha x deadline-quantile x buffer-depth
+    variants of ``base`` (default: ``async-q50``), unregistered — pass
+    them to ``run_grid`` or ``run_grid_batched`` as they are."""
+    base = base or SCENARIOS.get("async-q50") or Scenario(
+        name="async-base", description="async sweep point",
+        K=20, T=40, async_mode=True, deadline_quantile=0.5)
+    out = []
+    for alpha in alphas:
+        for q in quantiles:
+            for depth in depths:
+                out.append(dataclasses.replace(
+                    base, name=f"async-a{alpha:g}-q{q:g}-d{depth}",
+                    description=(f"async sweep point alpha={alpha:g}, "
+                                 f"deadline quantile {q:g}, buffer "
+                                 f"depth {depth}"),
+                    async_mode=True, deadline_s=None,
+                    deadline_quantile=q, staleness_alpha=alpha,
+                    max_staleness=depth))
+    return out
+
+
 register_scenario(Scenario(
     name="paper-table2",
     description="Table II operating point: K=20, L=5, IID/convergence "
@@ -239,3 +279,60 @@ register_scenario(Scenario(
                 "path: mixed-res encode, packed planes and weighted "
                 "dequant-reduce all in the wire kernels K1-K3",
     M=None, K=20, T=40, aggregation="wire"))
+
+register_scenario(Scenario(
+    name="cohort-wire",
+    description="fused-wire with the user axis streamed in cohorts of "
+                "8: each cohort trains and packs 8 users and folds into "
+                "the carried [d] accumulator, so the dense [K, d] "
+                "gradient stack never exists (DESIGN.md section 12)",
+    M=None, K=20, T=40, aggregation="wire", cohort_size=8))
+
+register_scenario(Scenario(
+    name="cohort-hierarchy",
+    description="two-level cell-free hierarchy: 4 AP-cluster groups "
+                "each aggregate their users' packed planes on device "
+                "(cohorts of 8), partial [d] aggregates combined in "
+                "cluster order",
+    M=None, K=20, T=40, aggregation="wire", cohort_size=8, clusters=4))
+
+register_scenario(Scenario(
+    name="async-q50",
+    description="asynchronous rounds: each round closes at the median "
+                "pending completion time; misses wait in a depth-2 "
+                "staleness buffer with (1+s)^-0.5 down-weighting",
+    K=20, T=40, async_mode=True, deadline_quantile=0.5,
+    staleness_alpha=0.5, max_staleness=2))
+
+register_scenario(Scenario(
+    name="async-churn",
+    description="async rounds under user churn (participation 0.7): "
+                "users dropping mid-upload are evicted from the "
+                "staleness buffer, never aggregated",
+    K=20, T=40, async_mode=True, deadline_quantile=0.5,
+    staleness_alpha=1.0, max_staleness=2, participation=0.7,
+    partition="dirichlet"))
+
+register_scenario(Scenario(
+    name="layer-budget-wire",
+    description="paper default under a per-layer budget: norm-like "
+                "leaves keep a fine grid (b=12, lambda 0.1), matmul "
+                "leaves a coarse one (b=6, lambda 0.3); payload bits "
+                "are the exact per-segment sum (DESIGN.md section 13)",
+    M=None, K=20, T=40, aggregation="wire",
+    budget=LayerBudget.by_group(norm=(0.1, 12), matmul=(0.3, 6))))
+
+register_scenario(Scenario(
+    name="async-sync-reduction",
+    description="async_mode=True with no deadline — the sync reduction: "
+                "runs the lockstep engine bit for bit",
+    K=20, T=40, async_mode=True))
+
+# the port's own variant: async-q50 on the packed plane, where an async
+# round's aggregate is one K3 over the fresh and the buffered planes
+register_scenario(dataclasses.replace(
+    SCENARIOS["async-q50"], name="async-q50-wire",
+    description="async-q50 on the packed wire plane: the fresh uploads "
+                "encoded by K1-K2, the arrivals and the buffer folded by "
+                "one K3 over 2K slots",
+    aggregation="wire"))

@@ -15,7 +15,10 @@ Each cell runs the engine and summarizes its round logs
 (``repro_torch.sim.metrics``).  Quantizer and power specs are registry
 names (with optional kwargs) or ready instances.  ``phy_batched=True``
 runs the grid on the batched phy path (``sim/phy_driver.py``), where
-``replicates=R`` adds the Monte-Carlo replicate axis.
+``replicates=R`` adds the Monte-Carlo replicate axis.  Async scenarios
+(``async_mode=True`` with a deadline; ``scenarios.async_scenarios``
+makes the staleness sweep axes) run through both: here each cell's
+``engine.run`` drives the event clock on the host solve.
 """
 from __future__ import annotations
 

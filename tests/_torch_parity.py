@@ -331,3 +331,54 @@ def churn_rounds(eng, rounds: int):
                     "an absent user's quantizer state changed"
         yield work, state.logs[-1], dict(wall=wall, calls=calls,
                                          active=int(work.active.sum()))
+
+
+def fold_chunks(x: torch.Tensor, weights: torch.Tensor, lambda_: float,
+                b: int, C: int, path=None):
+    """The cohort fold on given deltas ``x`` [U, d]: chunks of C users
+    encoded (K1, the epilogue, K2) and folded one after another into the
+    carried accumulator (K3 with ``acc``, the first chunk without), as
+    the engine's cohort step folds its cohorts.  Returns ``(acc [d],
+    head [U, 8])``, to hold against the one-shot
+    ``mixed_res_encode`` + ``mixed_res_wire_reduce`` of all U users:
+    the same values (+0.0 and -0.0 alike) and the same headers."""
+    U, d = x.shape
+    acc, heads = None, []
+    for c0 in range(0, U, C):
+        wire = ops.mixed_res_encode(x[c0:c0 + C], lambda_, b, path=path)
+        acc = ops.mixed_res_wire_reduce(wire, weights[c0:c0 + C], b, d,
+                                        acc=acc, path=path)
+        heads.append(wire.head)
+    return acc, torch.cat(heads)
+
+
+def params_gap(a: dict, b: dict) -> float:
+    """max |a - b| over every leaf of two params dicts (on the host)."""
+    return max(float((a[k].detach().double().cpu()
+                      - b[k].detach().double().cpu()).abs().max())
+               for k in a)
+
+
+def segment_bits_identity(bits: torch.Tensor, seg_bits: torch.Tensor,
+                          heads, segments) -> None:
+    """Per-layer budget accounting: each segment's payload is the
+    mixed-resolution payload of that segment alone,
+    ``d_seg (b_seg s_seg + 1 - s_seg) + 32`` in f32 from its header
+    (``heads``: the segments' [U, 8] headers in order), and ``bits`` is
+    their sum, left to right in f32 and within four f32 roundings a
+    segment of the exact float64 sum."""
+    want = None
+    exact = np.zeros(bits.shape[0])
+    for i, (seg, head) in enumerate(zip(segments, heads)):
+        sb, _ = ops.wire_head_stats(head, seg.b, seg.size)
+        assert same_bits(seg_bits[:, i], sb), (seg, i)
+        want = sb if want is None else want + sb
+        dbar = head[:, ops.H_DBAR].double().cpu().numpy()
+        inf = head[:, ops.H_INF].double().cpu().numpy()
+        s = dbar / seg.size
+        exact += np.where(inf > 0, seg.size * (seg.b * s + 1 - s),
+                          seg.size) + 32.0
+    assert same_bits(bits, want)
+    ulp = np.spacing(np.float32(exact.max()))
+    gap = np.abs(bits.double().cpu().numpy() - exact).max()
+    assert gap <= 4 * len(segments) * float(ulp), (gap, ulp)

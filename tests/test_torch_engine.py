@@ -202,6 +202,15 @@ def test_entry_points_default_to_cuda(monkeypatch):
 @pytest.mark.parametrize("kw", [
     dict(async_mode=True), dict(mesh=object()), dict(resilience=object())])
 def test_unported_engine_modes_raise(kw):
+    """The mesh and resilience are not ported and raise; async rounds
+    are ported: ``async_mode`` builds, and without a deadline it is
+    JAX's sync reduction (``async_active`` False)."""
+    if "async_mode" in kw:
+        cfg, jcfg = EngineConfig(**kw), JEngineConfig(**kw)
+        assert cfg.async_mode and jcfg.async_mode
+        assert cfg.async_active is jcfg.async_active is False
+        assert cfg.staleness.is_sync and jcfg.staleness.is_sync
+        return
     with pytest.raises(NotImplementedError):
         EngineConfig(**kw)
 
@@ -241,8 +250,29 @@ def test_engine_config_defaults_follow_jax():
     dict(cohort_size=8), dict(clusters=2), dict(async_mode=True),
     dict(budget=object()), dict(async_mode=True, deadline_quantile=0.5)])
 def test_unported_scenario_modes_raise(kw):
-    with pytest.raises(NotImplementedError):
-        tiny(**kw).engine_config()
+    """These scenario knobs are ported now: each builds and resolves to
+    the engine config JAX's scenario builds, or is refused with JAX's
+    ValueError (clusters without cohorts, a budget that is not a
+    LayerBudget)."""
+    from repro.sim import get_scenario as jget_scenario
+    agg = "wire" if "cohort_size" in kw or "clusters" in kw else "dense"
+    scn = tiny(aggregation=agg, **kw)
+    jscn = dataclasses.replace(jget_scenario("paper-table3"),
+                               aggregation=agg, **kw)
+    try:
+        jcfg = jscn.engine_config()
+    except ValueError:
+        with pytest.raises(ValueError):
+            scn.engine_config()
+        return
+    cfg = scn.engine_config()
+    jwp = jcfg.wire_path()
+    assert (cfg.wire.plane, cfg.wire.cohort_size, cfg.wire.clusters) \
+        == (jwp.plane, jwp.cohort_size, jwp.clusters)
+    assert (cfg.async_mode, cfg.async_active) \
+        == (jcfg.async_mode, jcfg.async_active)
+    assert dataclasses.astuple(cfg.staleness) \
+        == dataclasses.astuple(jcfg.staleness)
 
 
 def test_churn_scenario_builds_its_engine_config():
@@ -339,7 +369,10 @@ def test_port_imports_neither_jax_nor_repro():
                   "benchmarks.torch_table3_latency",
                   "benchmarks.torch_fig2_convergence",
                   "benchmarks.torch_phy_solvers",
-                  "benchmarks.torch_mc_replicates"]
+                  "benchmarks.torch_mc_replicates",
+                  "benchmarks.torch_cohort_scale",
+                  "benchmarks.torch_async_rounds",
+                  "benchmarks.torch_layer_budget"]
         for n in names:
             importlib.import_module(n)
         bad = sorted(m for m in sys.modules

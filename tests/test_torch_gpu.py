@@ -23,7 +23,12 @@ three planes with each K1-K5 launch held to its plain version.  The
 batched power solvers on the card against the CPU in float64; the
 replicated packed and signplane steps with each K1-K5 launch held to its
 plain version and replicate 0 the unreplicated run; the replicate vmap
-against the loop over replicates.
+against the loop over replicates.  Streaming cohorts (launches a
+cohort, C >= K bit for bit the vectorized step, the fold through K3's
+``acc`` equal to the one-shot K3), AP clusters, the cohort peak memory,
+K1-K3 at the per-layer budget's segment shapes and its rounds, async
+rounds with K3 over 2K slots and the sync reduction; and
+``chip_smoke.py``'s phases of those modes themselves.
 """
 import dataclasses
 
@@ -642,6 +647,244 @@ def test_replicate_vmap_matches_map_on_card(cuda):
         move = float((out["map"][1][k] - init).abs().max())
         diff = float((out["map"][1][k] - out["auto"][1][k]).abs().max())
         assert diff <= 1e-3 * move, (k, diff, move)
+
+
+# ----------------------- cohorts, clusters, budgets and async rounds
+def tiny_wire(name, **kw):
+    base = dict(K=7, T=2, n_train=280, n_test=40, batch_size=8, L=1,
+                eval_every=1)
+    base.update(kw)
+    return dataclasses.replace(get_scenario(name), **base)
+
+
+WIRE = ("mixed_res_reduce", "mixed_res_emit", "mixed_res_dequant_reduce")
+MIXED = ("mixed-resolution", {"lambda_": 0.2, "b": 10})
+
+
+@pytest.mark.parametrize("C", [3, 7])
+def test_cohort_rounds_on_card(cuda, C):
+    """Two rounds of a tiny cohort-wire (K=7, the paper CNN at full
+    width) on the card: K1, K2 and K3 launch once a cohort (C=3: 3, 3
+    and 1 user padded to 3), each launch bit for bit its plain version
+    (``WireSpy``); C=7 is the vectorized step bit for bit (inside
+    ``deterministic_cudnn``)."""
+    from repro_torch.fl.loop import deterministic_cudnn
+
+    scn = tiny_wire("cohort-wire", cohort_size=C)
+    n = -(-scn.K // C)
+    with deterministic_cudnn():
+        eng = make_engine(scn, MIXED, None, device=cuda)
+        reset_launch_counts()
+        with WireSpy() as spy:
+            res = eng.run()
+        torch.cuda.synchronize()
+        assert LAUNCHES == {k: scn.T * n if k in WIRE else 0
+                            for k in LAUNCHES}
+        assert spy.check(np.zeros(min(C, scn.K))) \
+            == {k: scn.T * n for k in WIRE}
+        vec = make_engine(dataclasses.replace(scn, cohort_size=None), MIXED,
+                          None, device=cuda).run()
+    if C >= scn.K:
+        assert run_mismatches(res, vec) == []
+    for v in res.params.values():
+        assert bool(torch.isfinite(v).all())
+
+
+@pytest.mark.parametrize("C", [1, 4, 13])
+def test_cohort_fold_on_card(cuda, C):
+    """The fold on the card on given deltas (U=13, d=65500): chunks of C
+    encoded and folded through K3's ``acc`` equal the one-shot K3 as
+    values, with the same headers; user 2 at weight 0."""
+    from _torch_parity import fold_chunks
+
+    U, d, b = 13, 65500, 10
+    x = deltas(21, U, d, cuda)
+    w = torch.rand(U, generator=torch.Generator().manual_seed(C)).to(cuda)
+    w[2] = 0.0
+    wire = ops.mixed_res_encode(x, 0.2, b)
+    one = ops.mixed_res_wire_reduce(wire, w, b, d)
+    acc, head = fold_chunks(x, w, 0.2, b, C)
+    assert torch.equal(acc, one) and bits_equal(head, wire.head)
+
+
+def test_cohort_hierarchy_on_card(cuda):
+    """A tiny cohort-hierarchy (K=7, C=3, 2 clusters) against the flat
+    cohort step from the same init: bits bit for bit, params within
+    1e-4; clusters of 4 and 3 users, 2 + 1 cohorts, 3 launches a
+    round."""
+    from _torch_parity import params_gap
+    from repro_torch.fl.loop import deterministic_cudnn
+
+    scn = tiny_wire("cohort-hierarchy", cohort_size=3, clusters=2)
+    with deterministic_cudnn():
+        reset_launch_counts()
+        hier = make_engine(scn, MIXED, None, device=cuda).run()
+        torch.cuda.synchronize()
+        launched = dict(LAUNCHES)
+        flat = make_engine(dataclasses.replace(scn, clusters=1), MIXED, None,
+                           device=cuda).run()
+    assert launched == {k: 3 * scn.T if k in WIRE else 0
+                        for k in launched}
+    for a, b in zip(hier.logs, flat.logs, strict=True):
+        np.testing.assert_array_equal(a.bits_per_user, b.bits_per_user)
+    assert params_gap(hier.params, flat.params) <= 1e-4
+
+
+def test_cohort_peak_tracks_c_on_card(cuda):
+    """One sample a user at K=600 (the paper CNN): a cohort round (C=64)
+    holds far less above its start than the vectorized round, and no
+    tensor of the round holds K with d."""
+    from benchmarks.torch_cohort_scale import LargestD
+
+    peaks = {}
+    for C in (64, None):
+        scn = tiny_wire("cohort-wire", K=600, n_train=600, batch_size=1,
+                        cohort_size=C)
+        eng = make_engine(scn, MIXED, None, device=cuda)
+        state = eng.start_run()
+        eng.train_round(state, 1)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with LargestD(eng.d) as probe:
+            eng.train_round(state, 2)
+        torch.cuda.synchronize()
+        peaks[C] = torch.cuda.max_memory_allocated() - held
+        if C is not None:
+            assert 600 not in probe.shape and probe.shape[0] <= C
+    assert peaks[64] < peaks[None] / 3, peaks
+
+
+def test_layer_budget_on_card(cuda):
+    """layer-budget-wire's segments of the paper CNN: K1-K3 bit for bit
+    their plain versions at U=5 and each segment's shape, lambda and b
+    (K2 on both rules, K3 with and without acc); two rounds of a tiny
+    layer-budget-wire, 6 launches of each a round, every launch bit for
+    bit its plain version; a uniform budget bit for bit the global
+    path."""
+    from repro_torch.core.quantize import LayerBudget
+    from repro_torch.fl.loop import deterministic_cudnn
+
+    scn = tiny_wire("layer-budget-wire")
+    eng = make_engine(scn, MIXED, None, device=cuda)
+    segs = eng._segments
+    assert [s.size for s in segs] == [32, 864, 64, 460800, 10, 640]
+    for seg in segs:
+        x = deltas(seg.size, 5, seg.size, cuda)
+        k1_k2_exact(x, seg.lambda_, seg.b)
+        wire = ops.mixed_res_encode(x, seg.lambda_, seg.b)
+        w = torch.tensor([0.1, 0.2, 0.3, 0.0, 0.4], device=cuda)
+        rows = ops.sign_pad_len(seg.size) // 128
+        for acc in (None, torch.randn(rows, 128, device=cuda)):
+            assert bits_equal(
+                mr.mixed_res_dequant_reduce(*wire, w, seg.b, acc=acc),
+                ref.mixed_res_dequant_reduce_ref(*wire, w, seg.b, acc=acc))
+    with deterministic_cudnn():
+        reset_launch_counts()
+        with WireSpy() as spy:
+            eng.run()
+        torch.cuda.synchronize()
+        assert LAUNCHES == {k: 6 * scn.T if k in WIRE else 0
+                            for k in LAUNCHES}
+        assert spy.check(np.zeros(scn.K)) == {k: 6 * scn.T for k in WIRE}
+        runs = [make_engine(dataclasses.replace(
+            get_scenario("fused-wire"), K=7, T=2, n_train=280, n_test=40,
+            batch_size=8, L=1, eval_every=1, budget=budget), MIXED, None,
+            device=cuda).run() for budget in (None, LayerBudget.uniform())]
+    assert run_mismatches(runs[1], runs[0]) == []
+
+
+@pytest.mark.parametrize("aggregation", ["dense", "wire"])
+def test_async_rounds_on_card(cuda, aggregation):
+    """Three rounds of a tiny async-q50 (K=6) on the card: on the packed
+    plane K1 and K2 once a round and K3 once over 2K slots, each launch
+    bit for bit its plain version; uploads conserved; the sync reduction
+    bit for bit the lockstep run (inside ``deterministic_cudnn``)."""
+    from repro_torch.fl.loop import deterministic_cudnn
+    from repro_torch.sim import run_cell
+
+    scn = tiny_wire("async-q50", K=6, T=3, n_train=240,
+                    aggregation=aggregation, M=4, N=2)
+    eng = make_engine(scn, MIXED, "bisection-lp", device=cuda)
+    state = eng.start_run()
+    reset_launch_counts()
+    with WireSpy() as spy:
+        for t in range(1, scn.T + 1):
+            work = eng.train_round(state, t)
+            up, pu = eng.solve_uplink_host(state.chan, work.bits_np,
+                                           work.active)
+            info = eng.complete_round_async(state, work, pu)
+            eng.finish_round(state, work, up, async_info=info, per_user_s=pu)
+    torch.cuda.synchronize()
+    n = scn.T if aggregation == "wire" else 0
+    assert LAUNCHES == {k: n if k in WIRE else 0 for k in LAUNCHES}
+    assert spy.check(np.zeros(2 * scn.K)) == ({k: n for k in WIRE} if n
+                                              else {})
+    c = state.async_clock
+    assert c.uploads_started == (c.arrived_total + c.dropped_stale
+                                 + c.dropped_churn + int(c.in_flight.sum()))
+    sync = dataclasses.replace(scn, deadline_quantile=None)
+    with deterministic_cudnn():
+        a, b = (run_cell(s, MIXED, "bisection-lp", quick=False, device=cuda)
+                for s in (sync, dataclasses.replace(sync, async_mode=False)))
+    assert run_mismatches(a.result, b.result) == []
+
+
+def test_async_packed_replicates_on_card(cuda):
+    """async-q50-wire (K=6) with R = 2 through ``run_grid_batched`` on
+    the card: the replicates loop, K1, K2 and K3 once a replicate a
+    round, each launch bit for bit its plain version; the stacked
+    buffer stays uint32; replicate 0 is the unreplicated run bit for bit
+    (inside ``deterministic_cudnn``) and replicate 1 another run."""
+    from repro_torch.fl.loop import deterministic_cudnn
+    from repro_torch.sim import run_grid_batched
+
+    scn = tiny_wire("async-q50-wire", K=6, T=3, n_train=240, M=4, N=2)
+    grid = lambda R: run_grid_batched([scn], {"mixed": MIXED},
+                                      {"bisection-lp": "bisection-lp"},
+                                      quick=False, device=cuda,
+                                      replicates=R)[0].result
+    with deterministic_cudnn():
+        reset_launch_counts()
+        with WireSpy() as spy:
+            rep = grid(2)
+        torch.cuda.synchronize()
+        assert LAUNCHES == {k: 2 * scn.T if k in WIRE else 0
+                            for k in LAUNCHES}
+        assert spy.check(np.zeros(2 * scn.K)) == {k: 2 * scn.T
+                                                   for k in WIRE}
+        one = grid(None)
+    assert run_mismatches(rep[0], one) == []
+    assert run_mismatches(rep[1], one) != []
+    eng = make_engine(scn, MIXED, "bisection-lp", device=cuda)
+    st = eng.start_replicated_run(2)
+    work = eng.train_round_replicated(st, 1)
+    eng.complete_round_replicated_async(
+        st, work, np.full((2, scn.K), 1.0) + np.arange(scn.K))
+    buf = st.async_clock.buffer
+    assert buf.signs.dtype == buf.codes.dtype == torch.uint32
+    assert buf.signs.shape[:2] == (2, scn.K)
+
+
+def test_chip_smoke_user_axis_and_round_mode_phases(cuda):
+    """The phases themselves: ``chip_smoke.py``'s cohort, fold,
+    hierarchy, scale, budget and async phases at full width, in this
+    process after the script's own build (about a minute on the card);
+    a failed check raises, and each phase launches K1-K3."""
+    import importlib.util
+    import pathlib
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", root / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    chip_smoke.build_all()
+    launches = {}
+    chip_smoke.user_axis_and_round_modes(cuda, launches)
+    for k in ("mixed_res_reduce", "mixed_res_emit",
+              "mixed_res_dequant_reduce"):
+        assert launches[k] > 0, (k, launches)
 
 
 # ---------------------------------------------------------------- K6

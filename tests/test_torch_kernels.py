@@ -227,8 +227,23 @@ def test_wire_plane_rules_match_jax(kw):
                                          ("budget", object()),
                                          ("checksum", True)])
 def test_unported_wire_knobs_raise(field, value):
-    with pytest.raises(NotImplementedError):
-        WirePath(**{field: value})
+    """The checksum is still unported and raises; cohorts, clusters and
+    budgets are ported and follow JAX's spec: a cohort size builds and
+    streams, clusters need a cohort size and a budget must be a
+    LayerBudget (JAX's ValueErrors)."""
+    from repro.kernels import WirePath as JWire
+    if field == "checksum":
+        with pytest.raises(NotImplementedError):
+            WirePath(**{field: value})
+    elif field == "cohort_size":
+        wp, jwp = WirePath(cohort_size=value), JWire(cohort_size=value)
+        assert wp.streaming and jwp.streaming
+        assert wp.effective_budget is jwp.effective_budget is None
+    else:
+        with pytest.raises(ValueError):
+            JWire(**{field: value})
+        with pytest.raises(ValueError):
+            WirePath(**{field: value})
 
 
 def test_wrapper_input_checks():

@@ -210,9 +210,11 @@ def test_unported_arguments_raise(narrow):
                dict(checkpoint_dir="ckpt")):
         with pytest.raises(NotImplementedError, match="not ported"):
             run_grid_batched([scn], q, quick=False, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="async"):
-        run_grid_batched([dataclasses.replace(scn, async_mode=True,
-                                              deadline_quantile=0.5)],
-                         q, quick=False, device="cpu")
+    # async scenarios are ported: a track a (quantizer, power) cell
+    res = run_grid_batched([dataclasses.replace(scn, async_mode=True,
+                                                deadline_quantile=0.5)],
+                           q, POWERS, quick=False, device="cpu")
+    assert [r.cell.power_label for r in res] == list(POWERS)
+    assert all(len(r.result.logs) == TINY["T"] for r in res)
     with pytest.raises(ValueError, match="replicates"):
         run_grid_batched([scn], q, quick=False, device="cpu", replicates=0)

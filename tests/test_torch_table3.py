@@ -308,13 +308,15 @@ def test_new_scenarios_build_as_jax(name):
 
 def test_run_grid_refuses_the_unported_paths():
     """The batched phy path is ported; ``replicates`` without it is a
-    ValueError as in JAX, and what the batched driver does not port yet
-    (async scenarios) raises NotImplementedError through ``run_grid``."""
+    ValueError as in JAX.  Async scenarios are ported too: they run
+    through ``run_grid`` on the batched path, replicated or not."""
     with pytest.raises(ValueError, match="phy_batched"):
         run_grid(["paper-table3"], {"m": "mixed-resolution"},
                  device="cpu", replicates=2)
-    scn = dataclasses.replace(tiny(get_scenario), async_mode=True)
+    scn = dataclasses.replace(tiny(get_scenario), async_mode=True,
+                              deadline_quantile=0.5, T=2)
     for kw in (dict(phy_batched=True), dict(phy_batched=True, replicates=2)):
-        with pytest.raises(NotImplementedError, match="async"):
-            run_grid([scn], {"m": "mixed-resolution"}, quick=False,
-                     device="cpu", **kw)
+        res = run_grid([scn], {"m": "mixed-resolution"},
+                       {"ours": "bisection-lp"}, quick=False, device="cpu",
+                       **kw)
+        assert len(res) == 1 and res[0].summary["rounds"] == 2.0
